@@ -1,0 +1,8 @@
+"""Hand-written Hopper kernels for the router, each beside its plain
+PyTorch version.
+
+Each kernel package ships ``kernel.py`` (the ctypes launcher of the CUDA
+kernel in ``csrc/``), ``ops.py`` (the public wrapper: the JAX package's
+padding, then the kernel for CUDA tensors and the plain version for CPU
+tensors, with a launch counter) and ``ref.py`` (the plain version).
+"""

@@ -1,0 +1,64 @@
+"""Model API for the serving engine (the dense subset of the JAX
+package's ``models/api.py``):
+
+    init_params(cfg, seed, device)          initialized model
+    init_cache(cfg, batch, max_len, device) decode cache
+    serve_step(model, token, cache, cfg)    one-token decode
+    prefill_chunk(model, toks, cache, …)    C-token prompt slab into the cache
+    splice_prefix(cache, slot, k, v)        prompt-prefix KV into a slot
+    supports_chunked_prefill(cfg)           which layouts take the chunked path
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from repro_torch.models import attention, lm
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.lm import Cache, DenseLM
+
+
+def init_params(cfg: ModelConfig, seed: int = 0,
+                device: torch.device = torch.device("cpu")) -> DenseLM:
+    return lm.init_lm(cfg, seed, device)
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               device: torch.device = torch.device("cpu")) -> Cache:
+    return lm.init_cache(cfg, batch, max_len, device)
+
+
+def serve_step(model: DenseLM, token: torch.Tensor, cache: Cache,
+               cfg: ModelConfig) -> Tuple[torch.Tensor, Cache]:
+    """One new token against the cache: (logits (B,1,V), cache)."""
+    return lm.decode_step(model, token, cache, cfg)
+
+
+def supports_chunked_prefill(cfg: ModelConfig) -> bool:
+    """Whether ``prefill_chunk`` exists for this architecture family: the
+    attention-cached layouts whose decode cache is a full-depth positional
+    KV store (recurrent layouts keep the one-token path)."""
+    return cfg.layout in ("dense", "moe", "encdec")
+
+
+def splice_prefix(cache: Cache, slot: int, k_block, v_block) -> Cache:
+    """Splice a prompt-prefix KV block ((L, P, Hk, hd) each) into one
+    decode slot, in place, and set the slot's length to P."""
+    attention.splice_kv(cache["k"], cache["v"], slot, k_block, v_block)
+    cache["length"][slot] = k_block.shape[1]
+    return cache
+
+
+def prefill_chunk(model: DenseLM, tokens: torch.Tensor, cache: Cache,
+                  cfg: ModelConfig, n_active: torch.Tensor
+                  ) -> Tuple[torch.Tensor, Cache]:
+    """Populate the decode cache with a (B, C) slab of prompt tokens at
+    per-slot offsets ``cache["length"]``; ``n_active`` (B,) gates how many
+    of the C positions are real per slot (0 = idle slot this step).
+
+    Returns (logits (B, C, V), cache).  The logits at position
+    n_active[b]-1 are the next-token logits slot b would have produced by
+    feeding the same tokens one at a time through ``serve_step``.
+    """
+    return lm.prefill_chunk_step(model, tokens, cache, cfg, n_active)

@@ -1,0 +1,182 @@
+"""GQA attention for serving: chunked prefill against a decode cache, and
+single-token decode, over full-depth per-slot KV caches.
+
+One code path serves full and sliding-window attention — the per-layer
+``window`` scalar parameterizes the mask (window == cache depth ⇒ full
+causal attention).  Scores and softmax run in float32 with K/V read from
+their storage dtype.  The cache writes happen in place: the JAX package
+threads the cache through ``jit`` with donated buffers, which is the same
+single copy updated where it lies.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+from torch import nn
+
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import apply_rope, param
+
+# most-negative bf16-representable value, never -inf: a row with nothing
+# visible (an idle padding slot) then softmaxes to finite garbage, not NaN
+NEG_INF = -2.3819763e38
+
+
+class Attention(nn.Module):
+    """Projections in the JAX layout: wq (d, Hq, hd), wk/wv (d, Hk, hd),
+    wo (Hq, hd, d)."""
+
+    def __init__(self, cfg: ModelConfig, device: torch.device):
+        super().__init__()
+        d, hq, hk, hd = (cfg.d_model, cfg.compute_heads, cfg.n_kv_heads,
+                         cfg.head_dim)
+        dt = cfg.torch_param_dtype()
+        self.wq = param((d, hq, hd), dt, device)
+        self.wk = param((d, hk, hd), dt, device)
+        self.wv = param((d, hk, hd), dt, device)
+        self.wo = param((hq, hd, d), dt, device)
+
+
+def project_qkv(params: Attention, x: torch.Tensor, positions: torch.Tensor,
+                cfg: ModelConfig, rope: bool = True):
+    dt = cfg.torch_dtype()
+    q = torch.einsum("bsd,dhk->bshk", x, params.wq.to(dt))
+    k = torch.einsum("bsd,dhk->bshk", x, params.wk.to(dt))
+    v = torch.einsum("bsd,dhk->bshk", x, params.wv.to(dt))
+    if rope:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def _neg_inf(like: torch.Tensor) -> torch.Tensor:
+    return torch.tensor(NEG_INF, dtype=torch.float32, device=like.device)
+
+
+def decode_attend(q: torch.Tensor, k_cache: torch.Tensor,
+                  v_cache: torch.Tensor, window: int,
+                  cache_len: torch.Tensor) -> torch.Tensor:
+    """q: (B, 1, Hq, hd); caches: (B, S, Hk, hd); ``cache_len`` (B,): slot
+    b attends to positions [cache_len_b - window, cache_len_b).  Scores
+    accumulate in float32."""
+    b, _, hq, hd = q.shape
+    s, hk = k_cache.shape[1], k_cache.shape[2]
+    group = hq // hk
+    scale = hd ** -0.5
+    q4 = q.reshape(b, hk, group, hd).float()
+    scores = torch.einsum("bhgd,bshd->bhgs", q4, k_cache.float()) * scale
+    pos = torch.arange(s, device=q.device)
+    cl = cache_len[:, None]                                    # (B, 1)
+    valid = (pos[None] < cl) & (pos[None] >= cl - window)      # (B, S)
+    scores = torch.where(valid[:, None, None, :], scores, _neg_inf(scores))
+    p = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhgs,bshd->bhgd", p, v_cache.float())
+    return out.reshape(b, 1, hq, hd).to(q.dtype)
+
+
+def chunk_attend(q: torch.Tensor, k_cache: torch.Tensor,
+                 v_cache: torch.Tensor, window: int,
+                 positions: torch.Tensor) -> torch.Tensor:
+    """Multi-query generalization of ``decode_attend``: a slab of C new
+    tokens attends into a full-depth cache.
+
+    q: (B, C, Hq, hd); caches: (B, S, Hk, hd); positions: (B, C) absolute
+    position of each query token, so slot b's query c attends to cache
+    positions (positions[b,c] - window, positions[b,c]].  Within a chunk,
+    earlier chunk tokens are visible to later ones because their K/V were
+    written into the cache *before* this attend.  A row whose mask is
+    empty (inactive padding slot) degrades to a uniform softmax over
+    NEG_INF scores — finite garbage the caller discards, never NaN.
+    """
+    b, c, hq, hd = q.shape
+    s, hk = k_cache.shape[1], k_cache.shape[2]
+    group = hq // hk
+    scale = hd ** -0.5
+    q5 = q.reshape(b, c, hk, group, hd).float()
+    scores = torch.einsum("bchgd,bshd->bhgcs", q5, k_cache.float()) * scale
+    pos = torch.arange(s, dtype=torch.int32, device=q.device)
+    valid = ((pos[None, None] <= positions[:, :, None])
+             & (pos[None, None] > positions[:, :, None] - window))  # (B, C, S)
+    scores = torch.where(valid[:, None, None], scores, _neg_inf(scores))
+    p = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhgcs,bshd->bchgd", p, v_cache.float())
+    return out.reshape(b, c, hq, hd).to(q.dtype)
+
+
+def write_chunk_(cache: torch.Tensor, new: torch.Tensor,
+                 lengths: torch.Tensor, active: torch.Tensor) -> None:
+    """Write a (B, C, Hk, hd) slab into a (B, S, Hk, hd) cache at per-slot
+    offsets ``lengths``, in place.  Position s of slot b takes slab entry
+    c = s − lengths[b] when 0 ≤ c < C and ``active[b, c]``; every other
+    position — inactive padding, and slab entries past the cache end —
+    writes nothing."""
+    b, c = active.shape
+    s = cache.shape[1]
+    c_idx = (torch.arange(s, device=cache.device)[None, :]
+             - lengths[:, None].long())                          # (B, S)
+    c_cl = c_idx.clamp(0, c - 1)
+    touched = (c_idx >= 0) & (c_idx < c) & torch.gather(active, 1, c_cl)
+    picked = torch.gather(
+        new, 1, c_cl[:, :, None, None].expand(b, s, *new.shape[2:]))
+    cache.copy_(torch.where(touched[:, :, None, None],
+                            picked.to(cache.dtype), cache))
+
+
+def attention_prefill_chunk(params: Attention, x: torch.Tensor,
+                            k_cache: torch.Tensor, v_cache: torch.Tensor,
+                            window: int, lengths: torch.Tensor,
+                            active: torch.Tensor,
+                            cfg: ModelConfig) -> torch.Tensor:
+    """One attention layer over a C-token prompt slab at per-slot offsets.
+
+    x: (B, C, d) slab activations; ``lengths``: (B,) tokens already in the
+    cache per slot (the slab lands at positions lengths..lengths+C-1);
+    ``active``: (B, C) bool — position c is a real token iff
+    c < n_active[b].  The slab's K/V are written into the caches in place
+    first (inactive positions write nothing), then the slab attends
+    write-then-read, so intra-chunk causality comes from the position
+    mask alone.  Returns out (B, C, d).
+    """
+    dt = cfg.torch_dtype()
+    c = x.shape[1]
+    offs = torch.arange(c, dtype=torch.int32, device=x.device)
+    positions = lengths[:, None] + offs[None, :]                 # (B, C)
+    q, k_new, v_new = project_qkv(params, x, positions, cfg)
+    write_chunk_(k_cache, k_new, lengths, active)
+    write_chunk_(v_cache, v_new, lengths, active)
+    out = chunk_attend(q, k_cache, v_cache, window, positions)
+    return torch.einsum("bshk,hkd->bsd", out, params.wo.to(dt))
+
+
+def attention_decode(params: Attention, x: torch.Tensor,
+                     k_cache: torch.Tensor, v_cache: torch.Tensor,
+                     window: int, cache_len: torch.Tensor,
+                     cfg: ModelConfig) -> torch.Tensor:
+    """x: (B, 1, d); ``cache_len`` (B,) per-slot lengths.  Appends the new
+    K/V at each slot's length in place (a slot already at the cache end
+    writes nothing), then attends.  Returns out (B, 1, d)."""
+    dt = cfg.torch_dtype()
+    positions = cache_len[:, None]
+    q, k_new, v_new = project_qkv(params, x, positions, cfg)
+    sel = (torch.arange(k_cache.shape[1], device=x.device)[None]
+           == cache_len[:, None])[:, :, None, None]
+    k_cache.copy_(torch.where(sel, k_new.to(k_cache.dtype), k_cache))
+    v_cache.copy_(torch.where(sel, v_new.to(v_cache.dtype), v_cache))
+    out = decode_attend(q, k_cache, v_cache, window, cache_len + 1)
+    return torch.einsum("bshk,hkd->bsd", out, params.wo.to(dt))
+
+
+def splice_kv(k_cache: torch.Tensor, v_cache: torch.Tensor, slot: int,
+              k_block, v_block) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Write a prompt-prefix KV block into one slot's cache rows in place.
+
+    k_cache/v_cache: (L, B, S, Hk, hd) stacked per-layer caches;
+    k_block/v_block: (L, P, Hk, hd) KV for prompt positions [0, P).  Every
+    other slot's rows are untouched."""
+    k_block = torch.as_tensor(k_block, device=k_cache.device)
+    v_block = torch.as_tensor(v_block, device=v_cache.device)
+    p = k_block.shape[1]
+    k_cache[:, slot, :p] = k_block.to(k_cache.dtype)
+    v_cache[:, slot, :p] = v_block.to(v_cache.dtype)
+    return k_cache, v_cache

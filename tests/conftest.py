@@ -43,6 +43,9 @@ def pytest_configure(config):
         "chaos: reliability-layer tests — deadlines/retries, per-arm "
         "circuit breakers, fault injection, governor charge hygiene "
         "under failure (run the subset with -m chaos)")
+    config.addinivalue_line(
+        "markers",
+        "port: PyTorch port parity tests (run the subset with -m port)")
 
 
 @pytest.fixture(scope="session")

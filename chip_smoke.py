@@ -14,8 +14,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      identical;
   5. serving: ``PoolServer`` over two full-width dense engines
      (granite-3-8b, h2o-danube-3-4b; bf16, random weights from a seed) on
-     a synthetic query stream — every query answered, finite logits, both
-     kernels launched by the main path — then a few steps under
+     a synthetic query stream plus a decode slice of short prompts — every
+     query answered, finite logits, both kernels launched by the main
+     path, real decode work — with three windows of the run under
      torch.profiler for the card's busy share and the top kernels;
   6. engine cross-check: two full-width granite layers, bf16 against fp32
      on the same weights.
@@ -53,6 +54,7 @@ BF16_REL_TOL = 0.25
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 FP32_FLOPS = 67e12             # H100 SXM fp32, outside the tensor cores
 SERVE_ARCHS = ("granite-3-8b", "h2o-danube-3-4b")
+PROFILE_STEPS = 5              # scheduler steps per profiled window
 
 
 def log(phase: str, msg: str) -> None:
@@ -119,13 +121,16 @@ def featurize_phase(dev) -> dict:
             worst = max(worst, err)
             ms = cuda_ms(lambda: kernel.hashed_embed_fwd(ids_d, w_d, proj))
             plain_ms = cuda_ms(lambda: hashed_embed_ref(ids_d, w_d, proj))
-            # bytes: ids + weights + proj read once, output written once;
-            # operations: what this data needs — a multiply-add per
-            # (non-zero bucket, column), the scatter, log1p, the norm
+            # what this data needs.  bytes: ids and weights read once, the
+            # output written once, and of the projection only the rows of
+            # buckets that some row of the batch hits (the kernel reads no
+            # other); operations: a multiply-add per (row, non-zero
+            # bucket, column), the scatter, log1p, the norm
             nnz = int((torch.zeros(ids.shape[0], proj.shape[0], device=dev)
                        .scatter_add_(1, ids_d.long().clamp(min=0),
                                      (ids_d >= 0).float()) > 0).sum())
-            n_bytes = (ids.size + w.size + proj.numel()
+            hit = int(torch.unique(ids_d[ids_d >= 0]).numel())
+            n_bytes = (ids.size + w.size + hit * proj.shape[1]
                        + ids.shape[0] * proj.shape[1]) * 4
             n_ops = (2 * nnz * proj.shape[1] + ids.size
                      + ids.shape[0] * (proj.shape[0] + 3 * proj.shape[1]))
@@ -134,8 +139,9 @@ def featurize_phase(dev) -> dict:
                              l=ids.shape[1], err=err, ms=ms,
                              plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by))
             log("kernels", f"featurize mode={mode} Q={q} ({ids.shape[0]}x"
-                f"{ids.shape[1]} ids): err {err:.3g}, kernel {ms:.6f} ms, "
-                f"plain {plain_ms:.6f} ms, bound {b_ms:.6f} ms ({b_by})")
+                f"{ids.shape[1]} ids, {hit} buckets hit, {nnz} row-bucket "
+                f"pairs): err {err:.3g}, kernel {ms:.6f} ms, plain "
+                f"{plain_ms:.6f} ms, bound {b_ms:.6f} ms ({b_by})")
     return {"rows": rows, "worst": worst}
 
 
@@ -248,11 +254,21 @@ def exact_match_accuracy(query, resp) -> float:
     return float(query.reference.strip().lower() in resp.text.strip().lower())
 
 
+def decode_only(server) -> bool:
+    """Nothing waits for a slot, every occupied slot is past its prompt,
+    and at least two slots decode: the next steps run decode ticks only."""
+    engines = server.engines.values()
+    live = [r for e in engines for r in e.slots
+            if r is not None and not r.defunct]
+    return (not server.arrivals and not any(e.queue for e in engines)
+            and len(live) >= 2 and all(r.prefill_done for r in live))
+
+
 def serving_phase(dev) -> dict:
     from repro_torch.configs import for_mode, get_config
     from repro_torch.core.pool import ModelPool
     from repro_torch.core.router import GreenServRouter
-    from repro_torch.core.types import RouterConfig, TaskType
+    from repro_torch.core.types import RouterConfig
     from repro_torch.data import stream as stream_lib
     from repro_torch.data import tokenizer as tok
     from repro_torch.kernels.featurize import ops as featurize_ops
@@ -279,21 +295,52 @@ def serving_phase(dev) -> dict:
     server = PoolServer(router, engines, tokenizer=tok.encode,
                         accuracy_fn=exact_match_accuracy, prefill_chunk=8)
     queries = stream_lib.make_stream(per_task=12, seed=0)
+    # At max_len 192 most stream prompts are >= 191 byte tokens and stop at
+    # their first token.  A decode slice follows them: each prompt is its
+    # task's instruction line alone, which leaves room for the task's whole
+    # max_new_tokens (96 for math, 128 for summaries), so the decode ticks
+    # at full width do real work.
+    decode_slice = [dataclasses.replace(q, uid=q.uid + 10_000,
+                                        text=q.text.split("\n", 1)[0])
+                    for q in stream_lib.make_stream(per_task=4, seed=5)]
+    arrivals = queries + decode_slice
     torch.cuda.reset_peak_memory_stats(dev)
-    # the main path: counts start at 0 here and are read right after
+    # the profiler's first session pays its own start-up: pay it here,
+    # outside the main path
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]):
+        torch.ones(8, device=dev).add_(1)
+        torch.cuda.synchronize()
+    # the main path: counts start at 0 here and are read right after.
+    # Arrivals are enqueued one per step, as the launcher does; three
+    # windows of the same run are profiled (after 20 steps, after 200, and
+    # at the first step with decode ticks only), then the server drains.
     featurize_ops.launches = 0
     linucb_ops.launches = 0
+    pending, step_s, windows = list(arrivals), [], []
+    triggers = (("prefill", lambda: len(step_s) >= 20),
+                ("backlog", lambda: len(step_s) >= 200),
+                ("decode", lambda: not pending and decode_only(server)))
     t1 = time.perf_counter()
-    for q in queries:
-        server.enqueue(q)
+    while pending or (len(windows) < len(triggers)
+                      and (server.inflight or server.arrivals)):
+        if len(windows) < len(triggers) and triggers[len(windows)][1]():
+            windows.append(profile_window(server, pending,
+                                          triggers[len(windows)][0],
+                                          step_s[-PROFILE_STEPS:]))
+            continue
+        if pending:
+            server.enqueue(pending.pop(0))
+        t = time.perf_counter()
         server.step()
+        step_s.append(time.perf_counter() - t)
     server.run_until_drained()
     torch.cuda.synchronize()
     t_serve = time.perf_counter() - t1
     launches = {"featurize": featurize_ops.launches,
                 "linucb": linucb_ops.launches}
-    if len(server.responses) != len(queries):
-        raise AssertionError(f"{len(server.responses)}/{len(queries)} "
+    if len(server.responses) != len(arrivals):
+        raise AssertionError(f"{len(server.responses)}/{len(arrivals)} "
                              f"queries answered")
     for name, eng in engines.items():
         if eng.nonfinite_ticks:
@@ -303,74 +350,94 @@ def serving_phase(dev) -> dict:
         if n <= 0:
             raise AssertionError(f"the main path never launched {name}")
     resp = list(server.responses.values())
-    prompt_toks = sum(r.input_tokens for r in resp)
-    out_toks = sum(r.output_tokens for r in resp)
-    ticks = {n: e.n_steps for n, e in engines.items()}
+    decoded = sum(sum(e.decode_tokens.values()) for e in engines.values())
+    if decoded < 200:
+        raise AssertionError(f"only {decoded} tokens decoded: the decode "
+                             f"path at full width did no real work")
     per_q = router.context.mean_overhead_ms()
-    log("serve", f"{len(resp)}/{len(queries)} queries answered in "
-        f"{t_serve:.3f} s (engine init {t_init:.3f} s); engine ticks {ticks}; "
-        f"arms {dict(zip(router.pool.names, router.selection_counts()))}")
-    log("serve", f"prefill {prompt_toks} tokens ({prompt_toks / t_serve:.1f} "
-        f"tok/s of serving wall time), generated {out_toks} tokens "
-        f"({out_toks / t_serve:.2f} tok/s); "
-        f"{sum(r.output_tokens <= 1 for r in resp)} queries stopped at their "
-        f"first token (prompt ≥ max_len − 1)")
+    steps = server._step_idx
+    log("serve", f"{len(resp)}/{len(arrivals)} queries answered "
+        f"({len(queries)} stream + {len(decode_slice)} decode slice) in "
+        f"{t_serve:.3f} s, {steps} scheduler steps, "
+        f"{t_serve / steps * 1e3:.3f} ms per step (engine init "
+        f"{t_init:.3f} s); arms "
+        f"{dict(zip(router.pool.names, map(int, router.selection_counts())))}; "
+        f"{sum(r.output_tokens <= 1 for r in resp)} queries stopped at "
+        f"their first token")
+    for name, e in engines.items():
+        n_c, n_d = e.tick_counts["chunk"], e.tick_counts["decode"]
+        s_c, s_d = e.tick_seconds["chunk"], e.tick_seconds["decode"]
+        prompt = sum(r.input_tokens for r in resp if r.model_name == name)
+        log("serve", f"{name}: {n_c} chunk ticks, "
+            f"{s_c / max(n_c, 1) * 1e3:.3f} ms each, {prompt} prompt tokens "
+            f"({prompt / max(s_c, 1e-9):.1f} tok/s of chunk-tick time) and "
+            f"{e.decode_tokens['chunk']} decode riders; {n_d} decode ticks, "
+            f"{s_d / max(n_d, 1) * 1e3:.3f} ms each, "
+            f"{e.decode_tokens['decode'] / max(n_d, 1):.3f} tokens per "
+            f"decode tick ({e.decode_tokens['decode'] / max(s_d, 1e-9):.1f} "
+            f"tok/s of decode-tick time)")
     log("serve", f"routing: decision {router.mean_decision_ms:.4f} ms/query, "
         f"host hashing {per_q['featurize']:.4f} ms/query, Flesch counts "
         f"{per_q['complexity']:.4f} ms/query; launches {launches}")
     log("serve", f"max_memory_allocated {torch.cuda.max_memory_allocated(dev)}"
         f" bytes; modeled energy "
         f"{sum(r.energy_wh for r in resp):.6f} Wh")
-    steps = server._step_idx
-    log("serve", f"{steps} scheduler steps, {t_serve / steps * 1e3:.3f} ms "
-        f"per step")
-    # a short profiled window over short prompts (the profiler's own
-    # post-processing grows with the number of events it recorded)
-    more = [dataclasses.replace(q, uid=q.uid + 10_000)
-            for q in stream_lib.make_stream(
-                per_task=2, seed=1, tasks=[TaskType.REASONING,
-                                           TaskType.COMPLETION])]
-    profile_window(server, more, steps=5, unprofiled_step_ms=t_serve / steps
-                   * 1e3)
-    if len(server.responses) != len(queries) + len(more):
-        raise AssertionError("the profiled window lost queries")
+    for key, what in (("busy", "kernels over the window's own wall time"),
+                      ("busy_before", "kernels over the unprofiled steps "
+                       "just before")):
+        busy = [w[key] for w in windows]
+        each = ", ".join(f"{w['label']} {w[key]:.4f}" for w in windows)
+        log("profile", f"card busy share, {what}: {each} (min "
+            f"{min(busy):.4f}, max {max(busy):.4f})")
     return launches
 
 
-def profile_window(server, queries, steps: int,
-                   unprofiled_step_ms: float) -> None:
-    """Where a serving step's time goes: ``steps`` scheduler steps under
-    torch.profiler (CPU + CUDA activity) while ``queries`` are served; the
-    kernels' summed device time per step against the unprofiled step time
-    gives the card's busy share.  Drains the server afterwards."""
+def profile_window(server, pending, label: str, before_s) -> dict:
+    """Where a serving step's time goes, in one window of the main run:
+    ``PROFILE_STEPS`` scheduler steps (still enqueueing one arrival each)
+    under torch.profiler with device activity.  The card's busy share
+    is the kernels' summed device time over the same steps' wall time; the
+    profiler lengthens the host side, so the unprofiled steps just before
+    (``before_s``) are printed beside it for scale."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    for q in queries:
-        server.enqueue(q)
-    for _ in range(2):
-        server.step()
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(steps):
+    ticks0 = {n: dict(e.tick_counts) for n, e in server.engines.items()}
+    # device activity only: recording every host op would lengthen the
+    # steps being measured
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(PROFILE_STEPS):
+            if pending:
+                server.enqueue(pending.pop(0))
             server.step()
         torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t) * 1e3 / steps
+        wall_ms = (time.perf_counter() - t) * 1e3 / PROFILE_STEPS
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA]
-    dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
-    log("profile", f"{steps} steps: {dev_ms:.3f} ms of kernels per step, "
-        f"{wall_ms:.3f} ms wall per step under the profiler, "
-        f"{unprofiled_step_ms:.3f} ms unprofiled → card busy "
-        f"{dev_ms / unprofiled_step_ms:.1%} of a serving step")
+    dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3 \
+        / PROFILE_STEPS
+    if dev_ms <= 0:
+        raise AssertionError(f"{label} window: the profiler recorded no "
+                             f"kernel time on the card")
+    before_ms = sum(before_s) / len(before_s) * 1e3
+    ticks = {n: {k: v - ticks0[n][k] for k, v in e.tick_counts.items()}
+             for n, e in server.engines.items()}
+    log("profile", f"{label} window (steps {server._step_idx - PROFILE_STEPS + 1}"
+        f"-{server._step_idx}): {dev_ms:.3f} ms of kernels per step over "
+        f"{wall_ms:.3f} ms wall per step → card busy {dev_ms / wall_ms:.4f}; "
+        f"the {len(before_s)} unprofiled steps before took {before_ms:.3f} "
+        f"ms each ({dev_ms / before_ms:.4f}); engine ticks in the window "
+        f"{ticks}")
     top = sorted(kernels, key=lambda e: e.self_device_time_total,
                  reverse=True)[:6]
     for e in top:
-        log("profile", f"  {e.self_device_time_total / 1e3 / steps:8.3f} "
-            f"ms/step  {e.count / steps:7.1f} calls/step  {e.key[:70]}")
-    server.run_until_drained()
+        log("profile", f"  {e.self_device_time_total / 1e3 / PROFILE_STEPS:8.3f}"
+            f" ms/step  {e.count / PROFILE_STEPS:7.1f} calls/step  "
+            f"{e.key[:70]}")
+    return {"label": label, "dev_ms": dev_ms, "wall_ms": wall_ms,
+            "busy": dev_ms / wall_ms, "busy_before": dev_ms / before_ms}
 
 
 # ---------------------------------------------------------------------------

@@ -106,6 +106,10 @@ def library() -> ctypes.CDLL:
 def check(err: int, kernel: str) -> None:
     """Raise if a launch was refused (the C entry point returned a nonzero
     ``cudaError_t``): a refused launch never runs, and a later
-    synchronize would not report it."""
+    synchronize would not report it.  1 (``cudaErrorInvalidValue``) is
+    also what a launcher returns for a shape its kernel does not take."""
     if err:
-        raise RuntimeError(f"{kernel} kernel launch failed: cudaError_t {err}")
+        hint = (" (cudaErrorInvalidValue: a shape the kernel does not take)"
+                if err == 1 else "")
+        raise RuntimeError(f"{kernel} kernel launch failed: cudaError_t "
+                           f"{err}{hint}")

@@ -3,7 +3,7 @@
 // Replaces the Pallas kernel src/repro/kernels/featurize/kernel.py
 // (_featurize_kernel, launched by hashed_embed_fwd).  For each row q:
 //
-//     counts[h] = sum_l weights[q, l] * [ids[q, l] == h]     (ids < 0 = pad)
+//     counts[h] = sum_l weights[q, l] * [ids[q, l] == h]     (-1 = pad)
 //     v         = log1p(counts) @ proj                       (proj: H x D)
 //     out[q]    = v / max(|v|, 1e-30) if |v| > 0 else v
 //
@@ -50,7 +50,9 @@ __global__ void featurize_kernel(const int* __restrict__ ids,
   __syncthreads();
   for (int l = tid; l < seq_l; l += blockDim.x) {
     const int id = row_ids[l];
-    if (id >= 0) atomicAdd(&tf[min(id, hash_dim - 1)], row_w[l]);
+    // an id outside [0, hash_dim) matches no bucket, as in the Pallas
+    // kernel's one-hot: padding (-1) and anything past the last bucket
+    if (id >= 0 && id < hash_dim) atomicAdd(&tf[id], row_w[l]);
   }
   __syncthreads();
   for (int h = tid; h < hash_dim; h += blockDim.x) tf[h] = log1pf(tf[h]);
@@ -91,15 +93,20 @@ __global__ void featurize_kernel(const int* __restrict__ ids,
 
 // ids int32 (q, seq_l), weights fp32 (q, seq_l), proj fp32 (hash_dim, dim),
 // out fp32 (q, dim), all contiguous on the device.  Returns the launch's
-// cudaError_t (0 = launched).
+// cudaError_t (0 = launched); cudaErrorInvalidValue, without launching, for
+// a shape the kernel does not take: dim > 1024 (one thread per column), or
+// counts and outputs beyond the 48 KB of shared memory a block gets without
+// opting in ((hash_dim + dim) * 4 bytes plus the reduction's 128).
 extern "C" int featurize_launch(const int* ids, const float* weights,
                                 const float* proj, float* out, int q,
                                 int seq_l, int hash_dim, int dim,
                                 void* stream) {
   if (q <= 0) return 0;
-  int threads = ((dim + 31) / 32) * 32;
-  if (threads > 1024) threads = 1024;
   const size_t smem = static_cast<size_t>(hash_dim + dim) * sizeof(float);
+  if (hash_dim <= 0 || dim <= 0 || dim > 1024 ||
+      smem + 32 * sizeof(float) > 48 * 1024)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int threads = ((dim + 31) / 32) * 32;
   featurize_kernel<<<q, threads, smem, static_cast<cudaStream_t>(stream)>>>(
       ids, weights, proj, out, seq_l, hash_dim, dim);
   return static_cast<int>(cudaGetLastError());

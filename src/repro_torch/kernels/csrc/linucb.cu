@@ -88,13 +88,18 @@ __global__ void linucb_kernel(const float* __restrict__ a_inv,
 }  // namespace
 
 // a_inv fp32 (m, d, d), theta fp32 (m, d), x fp32 (q, d), out fp32 (q, m),
-// all contiguous on the device.  Returns the launch's cudaError_t.
+// all contiguous on the device.  Returns the launch's cudaError_t;
+// cudaErrorInvalidValue, without launching, for a shape the kernel does not
+// take: more than 65535 arms (grid y), or staging beyond the 48 KB of shared
+// memory a block gets without opting in (d > 150).
 extern "C" int linucb_launch(const float* a_inv, const float* theta,
                              const float* x, float* out, int q, int m, int d,
                              float alpha, void* stream) {
   if (q <= 0 || m <= 0) return 0;
+  if (d <= 0 || m > 65535) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = (static_cast<size_t>(d) + kTileQ * (d + 1) +
                        static_cast<size_t>(rows_per_tile(d)) * d) * sizeof(float);
+  if (smem > 48 * 1024) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((q + kTileQ - 1) / kTileQ, m);
   linucb_kernel<<<grid, kTileQ, smem, static_cast<cudaStream_t>(stream)>>>(
       a_inv, theta, x, out, q, m, d, alpha);

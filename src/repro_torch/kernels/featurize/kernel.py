@@ -5,19 +5,16 @@ import torch
 
 from repro_torch.kernels import build
 
-SMEM_LIMIT = 48 * 1024     # bytes of shared memory a block gets by default
-
 
 def hashed_embed_fwd(ids: torch.Tensor, weights: torch.Tensor,
                      proj: torch.Tensor) -> torch.Tensor:
     """ids int32 (Q, L), weights fp32 (Q, L), proj fp32 (H, D), contiguous
     CUDA tensors on one device → fp32 (Q, D), launched on the current
-    stream."""
+    stream.  A shape the kernel does not take (D > 1024, or H + D floats
+    beyond a block's 48 KB of shared memory) is refused by the C launcher
+    and raises."""
     q, seq_l = ids.shape
     hash_dim, dim = proj.shape
-    if (hash_dim + dim) * 4 + 128 > SMEM_LIMIT or dim > 1024:
-        raise ValueError(f"featurize kernel takes (H + D)·4 bytes ≤ 48 KB "
-                         f"and D ≤ 1024; got H={hash_dim}, D={dim}")
     out = torch.empty((q, dim), dtype=torch.float32, device=ids.device)
     stream = torch.cuda.current_stream(ids.device).cuda_stream
     err = build.library().featurize_launch(

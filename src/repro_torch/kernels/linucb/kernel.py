@@ -5,26 +5,15 @@ import torch
 
 from repro_torch.kernels import build
 
-TILE_Q = 64                # queries per block, as in the source
-ROW_FLOATS = 2048          # floats of A⁻¹ staged per tile, as in the source
-SMEM_LIMIT = 48 * 1024     # bytes of shared memory a block gets by default
-
-
-def smem_bytes(d: int) -> int:
-    rows = min(d, max(1, ROW_FLOATS // d))
-    return (d + TILE_Q * (d + 1) + rows * d) * 4
-
 
 def linucb_scores_fwd(a_inv: torch.Tensor, theta: torch.Tensor,
                       x: torch.Tensor, alpha: float) -> torch.Tensor:
     """a_inv fp32 (M, d, d), theta fp32 (M, d), x fp32 (Q, d), contiguous
     CUDA tensors on one device → fp32 (Q, M), launched on the current
-    stream."""
+    stream.  A shape the kernel does not take (d > 150, M > 65535) is
+    refused by the C launcher and raises."""
     m, d, _ = a_inv.shape
     q = x.shape[0]
-    if smem_bytes(d) > SMEM_LIMIT or m > 65535:
-        raise ValueError(f"linucb kernel takes d ≤ 150 and M ≤ 65535; got "
-                         f"d={d}, M={m}")
     out = torch.empty((q, m), dtype=torch.float32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = build.library().linucb_launch(

@@ -114,6 +114,11 @@ class ModelEngine(BaseEngine):
     place each tick (the JAX package donates it to its jitted steps).
     ``nonfinite_ticks`` counts ticks whose next-token logits held a NaN or
     an infinity (read back with the tokens, in the same transfer).
+    ``tick_counts``, ``tick_seconds`` and ``decode_tokens`` are kept per
+    tick kind ("chunk", "decode"): ticks run, host seconds spent in them
+    (each tick ends in that device→host read, so the clock covers its
+    device work), and tokens generated by slots already decoding (a
+    prompt's first token is prefill's, not counted).
     """
 
     def __init__(self, name: str, cfg: ModelConfig, seed: int = 0,
@@ -146,6 +151,9 @@ class ModelEngine(BaseEngine):
             params_b=cfg.param_count() / 1e9, arch_config=cfg)
         self.n_steps = 0
         self.nonfinite_ticks = 0
+        self.tick_counts = {"chunk": 0, "decode": 0}
+        self.tick_seconds = {"chunk": 0.0, "decode": 0.0}
+        self.decode_tokens = {"chunk": 0, "decode": 0}
         self.prefill_chunk = 1
         self.set_prefill_chunk(prefill_chunk)
         self._modeled_time_s = 0.0
@@ -213,12 +221,19 @@ class ModelEngine(BaseEngine):
         self._last_step_s = time.monotonic()
         if not any(self.slots):
             return []
-        need_prefill = any(
-            req is not None and not req.defunct
-            and not req.prefill_done for req in self.slots)
-        if self.prefill_chunk > 1 and need_prefill:
-            return self._chunk_tick()
-        return self._decode_tick()
+        live = [req for req in self.slots
+                if req is not None and not req.defunct]
+        need_prefill = any(not req.prefill_done for req in live)
+        kind = ("chunk" if self.prefill_chunk > 1 and need_prefill
+                else "decode")
+        decoding = sum(req.prefill_done for req in live)  # one token each
+        t0 = time.perf_counter()
+        done = (self._chunk_tick() if kind == "chunk"
+                else self._decode_tick())
+        self.tick_seconds[kind] += time.perf_counter() - t0
+        self.tick_counts[kind] += 1
+        self.decode_tokens[kind] += decoding
+        return done
 
     def _decode_tick(self) -> List[Response]:
         """One-token tick: every live slot feeds one token (next prompt

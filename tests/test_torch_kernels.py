@@ -60,15 +60,24 @@ def test_featurize_plain_matches_jax(q, l, h, d):
 
 
 def test_featurize_ids_past_hash_dim_clip_like_jax():
-    """Out-of-range ids land in the last bucket on both packages."""
-    ids = np.array([[0, 5, 300, 999, -1]], np.int32)
-    weights = np.array([[1.0, 0.5, 0.75, 1.0, 1.0]], np.float32)
+    """Ids at or past hash_dim match no bucket, as in the Pallas kernel the
+    port replaces (its one-hot never matches them): the result equals the
+    row with those ids turned into padding.  The JAX jnp oracle clips them
+    into the last bucket instead; the port follows the kernel."""
+    ids = np.array([[0, 5, 300, 999, -1], [255, 256, -1, -1, -1]], np.int32)
+    weights = np.array([[1.0, 0.5, 0.75, 1.0, 1.0],
+                        [0.5, 1.0, 1.0, 1.0, 1.0]], np.float32)
     proj = np.random.default_rng(0).standard_normal((256, 16)).astype(
         np.float32)
     out = hashed_embed_ref(torch.from_numpy(ids), torch.from_numpy(weights),
                            torch.from_numpy(proj)).numpy()
-    ref = np.asarray(jax_featurize_ref(jnp.asarray(ids), jnp.asarray(weights),
+    kern = np.asarray(jax_hashed_embed(jnp.asarray(ids), jnp.asarray(weights),
+                                       jnp.asarray(proj), interpret=True))
+    padded = np.where(ids < 256, ids, -1).astype(np.int32)
+    ref = np.asarray(jax_featurize_ref(jnp.asarray(padded),
+                                       jnp.asarray(weights),
                                        jnp.asarray(proj)))
+    np.testing.assert_allclose(out, kern, atol=1e-5, rtol=1e-5)
     np.testing.assert_allclose(out, ref, atol=1e-6)
 
 

@@ -268,6 +268,22 @@ def test_splice_kv_matches_jax():
     np.testing.assert_array_equal(pk.numpy(), np.asarray(jk))
 
 
+def test_engine_tick_counters_add_up():
+    """Per tick kind: every tick is counted once, and the decode tokens
+    plus one first token per answered prompt are all tokens generated."""
+    pcfg = get_config("granite-3-8b", **F32)
+    eng = ModelEngine("g", pcfg, max_batch=2, max_len=MAX_LEN,
+                      prefill_chunk=8, device="cpu")
+    eng.submit_many(_requests(Request, Query))
+    out = _drain(eng, 3)
+    assert sum(eng.tick_counts.values()) == eng.n_steps
+    assert eng.tick_counts["chunk"] > 0 and eng.tick_counts["decode"] > 0
+    assert all(s > 0 for s in eng.tick_seconds.values())
+    generated = sum(len(r.tokens) for r in out.values())
+    assert sum(eng.decode_tokens.values()) + len(out) == generated
+    assert eng.decode_tokens["decode"] > 0
+
+
 def test_serve_mode_stores_bf16_and_serves():
     pcfg = for_mode(get_config("granite-3-8b", smoke=True,
                                vocab_size=tok.VOCAB_SIZE), "serve")

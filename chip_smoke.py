@@ -6,19 +6,32 @@
 Phases, in order; any failure raises and the script exits non-zero:
 
   1. the card's name and power limit (nvidia-smi);
-  2. build the router's CUDA kernels from ``src/repro_torch/kernels/csrc``;
-  3. kernels: featurize and LinUCB against their plain PyTorch versions on
-     the card (featurize 1e-5, LinUCB 1e-4), timed with CUDA events;
+  2. build the CUDA kernels from ``src/repro_torch/kernels/csrc``;
+  3. kernels: the wrappers of featurize, LinUCB, MoE gating and flash
+     attention against their plain PyTorch versions on the card
+     (featurize 1e-5, LinUCB 1e-4, gating indices exact and weights 1e-6,
+     flash one bf16 unit in bf16 and 2e-5 in fp32, causal danube with
+     its window included) at the main paths' shapes, timed with CUDA
+     events beside their bounds and, for flash, PyTorch's own attention
+     call;
   4. router: one 64-query stream through twin routers on the card, device
      featurize vs host featurize — arms, labels, clusters and bins must be
      identical;
-  5. serving: ``PoolServer`` over two full-width dense engines
-     (granite-3-8b, h2o-danube-3-4b; bf16, random weights from a seed) on
-     a synthetic query stream plus a decode slice of short prompts — every
-     query answered, finite logits, both kernels launched by the main
-     path, real decode work — with three windows of the run under
-     torch.profiler for the card's busy share and the top kernels;
-  6. engine cross-check: two full-width granite layers, bf16 against fp32
+  5. serving: ``PoolServer`` over three full-width engines (granite-3-8b,
+     h2o-danube-3-4b, qwen2-moe-a2.7b; bf16, ``use_pallas=True``, random
+     weights from a seed) on a synthetic query stream plus a decode slice
+     of short prompts — every query answered, finite logits, the router
+     kernels and the gating kernel launched by the main path (24 gating
+     launches per MoE tick), real decode work — with three windows of the
+     run under torch.profiler for the card's busy share and the top
+     kernels;
+  6. one-shot prefill: ``api.prefill`` on the three served models at
+     full width (granite B=2 S=2048, danube B=1 S=6144, qwen2-moe B=2
+     S=2048) through the flash kernel at every layer and the gating
+     kernel at every MoE layer; finite logits; qwen2-moe's one-shot
+     logits at its first 2 layers against its chunked prefill (S=512, in
+     bf16 and fp32) and against the ``use_pallas=False`` path;
+  7. engine cross-check: two full-width granite layers, bf16 against fp32
      on the same weights.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
@@ -27,6 +40,8 @@ CUDA device is visible or the package is not beside this script.
 """
 from __future__ import annotations
 
+import contextlib
+import copy
 import dataclasses
 import json
 import subprocess
@@ -42,6 +57,19 @@ SRC = ROOT / "src"
 
 FEATURIZE_TOL = 1e-5           # tests/test_kernels.py's featurize tolerance
 LINUCB_TOL = 1e-4              # and its LinUCB tolerance
+GATING_TOL = 1e-6              # its gating weight tolerance (indices exact)
+FLASH_FP32_TOL = 2e-5          # its fp32 flash tolerance (atol and rtol)
+# flash in bf16, as a share of |ref| plus the output's RMS.  The kernel and
+# the plain version both accumulate in fp32 and round the output to bf16
+# once, so they differ by at most one bf16 unit in the last place, which
+# is at most 2^-7 of |ref|; the RMS term covers outputs near 0.  This is
+# far inside tests/test_kernels.py's 3e-2, which is about as large as a
+# typical output here (|out| ~ sqrt(e/n) for n visible keys: 0.03 at
+# n = 2048): a dropped kv tile moves outputs by the order of their RMS
+# and fails it.  An off-by-one of the window or the diagonal moves an
+# output by ~1/n of a value, below one bf16 unit: the fp32 causal danube
+# case holds that at FLASH_FP32_TOL.
+FLASH_BF16_REL = 2.0 ** -7
 # bf16 vs fp32 logits of the same two layers, as a share of the fp32 logit
 # range.  bf16 keeps 8 significant bits (unit roundoff 2^-9), but with the
 # reference's init rule q and k reach magnitudes of 10-20 at d_model 4096,
@@ -51,22 +79,63 @@ LINUCB_TOL = 1e-4              # and its LinUCB tolerance
 # check exists to catch a broken bf16 path (garbage or NaN: errors of the
 # order of the range itself), so it allows a quarter of the range.
 BF16_REL_TOL = 0.25
+# qwen2-moe's one-shot prefill against its chunked prefill and against the
+# use_pallas=False path, at the model's first PREFILL_CHECK_DEPTH layers
+# (weights shared with the served engine), as a share of the logit range.
+# With random weights the stack is chaotic: a rounding gap moves a router
+# logit across a near-tie, the token goes to another expert, and attention
+# spreads that to every later token, so at full depth the paths differ by
+# the order of the range even in fp32 (PERF.md, PR 12).  At 2 layers the
+# bf16 gaps read 0.0045 (chunked) and 0.0217 (use_pallas False); the paths
+# round q, scores and outputs to bf16 at different places and bf16
+# index_add_ adds in a varying order, so bf16 is held at 0.05.  The same
+# one-shot vs chunked comparison in fp32 on the same weights reads 9.2e-6
+# and is held at 1e-4.
+PREFILL_CHECK_DEPTH = 2
+PREFILL_REL_TOL = 0.05
+PREFILL_FP32_REL_TOL = 1e-4
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 FP32_FLOPS = 67e12             # H100 SXM fp32, outside the tensor cores
-SERVE_ARCHS = ("granite-3-8b", "h2o-danube-3-4b")
+BF16_FLOPS = 989e12            # H100 SXM bf16 tensor cores, dense
+MOE_ARCH = "qwen2-moe-a2.7b"
+SERVE_ARCHS = ("granite-3-8b", "h2o-danube-3-4b", MOE_ARCH)
 PROFILE_STEPS = 5              # scheduler steps per profiled window
+MOE_MIN_DECODE_TICKS = 16      # below this, a decode slice goes straight
+                               # into the MoE engine after the pool drains
+# one-shot prefill at full width: (arch, batch, sequence)
+PREFILL_CASES = (("granite-3-8b", 2, 2048), ("h2o-danube-3-4b", 1, 6144),
+                 (MOE_ARCH, 2, 2048))
+# flash kernel shapes: the three prefills' attention (window as
+# ``layer_windows`` gives it), danube's again in fp32 (the causal and
+# window masks at a tight tolerance) and one non-causal fp32 shape
+# (name, b, sq, sk, hq, hk, hd, window, causal, dtype)
+FLASH_CASES = (
+    ("granite-3-8b", 2, 2048, 2048, 32, 8, 128, 2048, True, torch.bfloat16),
+    ("h2o-danube-3-4b", 1, 6144, 6144, 32, 8, 120, 4096, True,
+     torch.bfloat16),
+    (MOE_ARCH, 2, 2048, 2048, 16, 16, 128, 2048, True, torch.bfloat16),
+    ("h2o-danube-3-4b fp32", 1, 6144, 6144, 32, 8, 120, 4096, True,
+     torch.float32),
+    ("non-causal", 1, 512, 768, 8, 2, 120, 640, False, torch.float32),
+)
+GATING_T = (4, 32, 4096)       # decode tick, chunk tick (4 x 8), a prefill
 
 
 def log(phase: str, msg: str) -> None:
     print(f"[{phase}] {msg}", flush=True)
 
 
-def cuda_ms(fn, n: int = 200) -> float:
-    """Mean milliseconds per call of ``fn`` over ``n`` back-to-back calls,
-    between two CUDA events, after a warm-up."""
-    for _ in range(5):
+def cuda_ms(fn, n: int = 200, budget_s: float = 0.5) -> float:
+    """Mean milliseconds per call of ``fn`` over back-to-back calls,
+    between two CUDA events, after a warm-up: ``n`` calls, or fewer (at
+    least 3) where ``n`` would take longer than ``budget_s``."""
+    for _ in range(3):
         fn()
     torch.cuda.synchronize()
+    t = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    n = max(3, min(n, int(budget_s / max(time.perf_counter() - t, 1e-9))))
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -77,11 +146,31 @@ def cuda_ms(fn, n: int = 200) -> float:
     return start.elapsed_time(end) / n
 
 
-def bound(n_bytes: float, n_ops: float) -> tuple:
-    """(ms, "bytes" | "operations"): the least time the card could take."""
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / FP32_FLOPS
+def bound(n_bytes: float, n_ops: float, flops: float = FP32_FLOPS) -> tuple:
+    """(ms, "bytes" | "operations"): the least time the card could take,
+    with ``flops`` the peak rate for the operations' type."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / flops
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
+
+
+def _ops_modules() -> dict:
+    from repro_torch.kernels.featurize import ops as featurize_ops
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.linucb import ops as linucb_ops
+    from repro_torch.kernels.moe_gating import ops as gating_ops
+    return {"featurize": featurize_ops, "linucb": linucb_ops,
+            "moe_gating": gating_ops, "flash_attention": flash_ops}
+
+
+def reset_launches() -> None:
+    """Every wrapper's launch count to 0 (just before a path is driven)."""
+    for mod in _ops_modules().values():
+        mod.launches = 0
+
+
+def read_launches() -> dict:
+    return {name: mod.launches for name, mod in _ops_modules().items()}
 
 
 # ---------------------------------------------------------------------------
@@ -186,6 +275,126 @@ def linucb_phase(dev) -> dict:
     return {"rows": rows, "worst": worst}
 
 
+def gating_phase(dev) -> dict:
+    from repro_torch.kernels.moe_gating import ops
+    from repro_torch.kernels.moe_gating.ref import topk_gating_ref
+
+    rng = np.random.default_rng(13)
+    e, k = 60, 4
+    rows, worst = [], 0.0
+    cases = [(t, False) for t in GATING_T] + [(GATING_T[-1], True)]
+    for t, tied in cases:
+        x = rng.standard_normal((t, e)).astype(np.float32)
+        if tied:     # quantized: many exact ties, and whole rows equal
+            x = np.round(x * 2) / 2 + 0.0
+            x[::7] = 0.5
+        logits = torch.from_numpy(x).to(dev)
+        w, i = ops.topk_gating(logits, k)
+        rw, ri = topk_gating_ref(logits, k)
+        torch.cuda.synchronize()
+        if not torch.equal(i, ri):
+            bad = (i != ri).any(dim=1).nonzero()[:8, 0].tolist()
+            raise AssertionError(f"gating T={t} tied={tied}: indices differ "
+                                 f"from the plain version at rows {bad}")
+        err = float((w - rw).abs().max())
+        if not err <= GATING_TOL:
+            raise AssertionError(f"gating T={t}: max abs err {err} > "
+                                 f"{GATING_TOL}")
+        worst = max(worst, err)
+        ms = cuda_ms(lambda: ops.topk_gating(logits, k))
+        plain_ms = cuda_ms(lambda: topk_gating_ref(logits, k))
+        # bytes: the logits read once, weights and indices written once
+        b_ms, b_by = bound(t * e * 4 + t * k * 8, 0)
+        rows.append(dict(t=t, tied=tied, err=err, ms=ms, plain_ms=plain_ms,
+                         bound_ms=b_ms, bound_by=b_by))
+        log("kernels", f"moe_gating T={t} E={e} k={k}{' tied' if tied else ''}"
+            f": indices equal, weight err {err:.3g}, kernel {ms:.6f} ms, "
+            f"plain {plain_ms:.6f} ms, bound {b_ms:.6f} ms ({b_by})")
+    return {"rows": rows, "worst": worst}
+
+
+def visible_pairs(sq: int, sk: int, window: int, causal: bool) -> int:
+    """(q, k) pairs the mask leaves visible: k > q - window, k <= q when
+    causal, positions from 0."""
+    q = np.arange(sq, dtype=np.int64)
+    lo = np.maximum(0, q - window + 1)
+    hi = np.minimum(q + 1, sk) if causal else np.full(sq, sk)
+    return int(np.maximum(hi - lo, 0).sum())
+
+
+def flash_phase(dev) -> dict:
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    rng = np.random.default_rng(9)
+    rows, worst = [], 0.0
+    for name, b, sq, sk, hq, hk, hd, win, causal, dt in FLASH_CASES:
+        q, k, v = (torch.from_numpy(rng.standard_normal(shape, np.float32))
+                   .to(dev, dt) for shape in ((b, sq, hq, hd), (b, sk, hk, hd),
+                                              (b, sk, hk, hd)))
+        out = ops.flash_attention(q, k, v, win, causal)
+        ref = attention_ref(q, k, v, win, causal).float()
+        torch.cuda.synchronize()
+        diff = (out.float() - ref).abs()
+        err = float(diff.max())
+        rms = float(ref.pow(2).mean().sqrt())
+        if dt == torch.bfloat16:
+            limit, what = FLASH_BF16_REL * (ref.abs() + rms), \
+                f"{FLASH_BF16_REL} of |ref| + RMS {rms:.4g}"
+        else:
+            limit, what = FLASH_FP32_TOL * (1 + ref.abs()), \
+                f"{FLASH_FP32_TOL} (atol and rtol)"
+        worst_ratio = float((diff / limit).max())
+        if not (torch.isfinite(out).all() and worst_ratio <= 1):
+            raise AssertionError(f"flash {name}: max abs err {err}, "
+                                 f"{worst_ratio:.3g} of the limit {what}")
+        worst = max(worst, err)
+        # PyTorch's own attention call on the same inputs and mask, as the
+        # yardstick: (B, H, S, hd) layout, GQA by enable_gqa
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        qp = torch.arange(sq, device=dev)[:, None]
+        kp = torch.arange(sk, device=dev)[None, :]
+        mask = kp > qp - win
+        if causal:
+            mask &= kp <= qp
+
+        def library():
+            return torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, enable_gqa=True)
+
+        # a check that the yardstick computes the same function (a mask
+        # mistake would be of the order of the outputs), at the bf16
+        # tolerance for both dtypes: its fp32 path may round through TF32
+        lib_err = float((library().transpose(1, 2).float() - ref).abs().max())
+        if not lib_err <= 3e-2 * max(1.0, float(ref.abs().max())):
+            raise AssertionError(f"flash {name}: the library call differs "
+                                 f"from the plain version by {lib_err}")
+        del ref, diff, limit
+        ms = cuda_ms(lambda: ops.flash_attention(q, k, v, win, causal))
+        plain_ms = cuda_ms(lambda: attention_ref(q, k, v, win, causal))
+        library_ms = cuda_ms(library)
+        pairs = visible_pairs(sq, sk, win, causal)
+        n_bytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+        n_ops = 4 * hd * pairs * hq * b
+        b_ms, b_by = bound(n_bytes, n_ops,
+                           BF16_FLOPS if dt == torch.bfloat16 else FP32_FLOPS)
+        rows.append(dict(name=name, shape=(b, sq, sk, hq, hk, hd, win,
+                                           causal, str(dt)),
+                         err=err, ms=ms, plain_ms=plain_ms,
+                         library_ms=library_ms, bound_ms=b_ms, bound_by=b_by,
+                         pairs=pairs))
+        log("kernels", f"flash_attention {name} B={b} Sq={sq} Sk={sk} "
+            f"Hq={hq} Hk={hk} hd={hd} window={win} causal={causal} {dt}: "
+            f"{pairs} visible pairs per head, err {err:.3g} (output RMS "
+            f"{rms:.4g}; {worst_ratio:.3f} of the limit; library "
+            f"{lib_err:.3g}), kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, "
+            f"library {library_ms:.6f} ms, bound {b_ms:.6f} ms ({b_by}), "
+            f"{n_ops / ms / 1e9:.1f} TFLOP/s")
+        del q, k, v, qt, kt, vt, out
+        torch.cuda.empty_cache()
+    return {"rows": rows, "worst": worst}
+
+
 # ---------------------------------------------------------------------------
 # 4. device vs host routing
 # ---------------------------------------------------------------------------
@@ -203,8 +412,10 @@ def router_phase(dev) -> None:
 
     routers = {}
     for featurize in ("device", "host"):
-        pool = ModelPool([ModelProfile(name=a, family="dense", params_b=p)
-                          for a, p in zip(SERVE_ARCHS, (8.2, 4.0))])
+        pool = ModelPool([ModelProfile(name=a, family=f, params_b=p)
+                          for a, f, p in zip(SERVE_ARCHS,
+                                             ("dense", "dense", "moe"),
+                                             (8.2, 4.0, 14.3))])
         routers[featurize] = GreenServRouter(
             RouterConfig(lam=0.4, energy_scale_wh=0.05, featurize=featurize),
             pool, device=dev)
@@ -232,7 +443,7 @@ def router_phase(dev) -> None:
         log("router", f"featurize={name}: route_batch {wall / 64 * 1e3:.4f} "
             f"ms/query wall (batches of 16), decision clock "
             f"{r.mean_decision_ms:.4f} ms/query, arms "
-            f"{np.bincount([x[0] for x in rows], minlength=2)}")
+            f"{np.bincount([x[0] for x in rows], minlength=len(SERVE_ARCHS))}")
     if seen["device"] != seen["host"]:
         bad = [i for i, (a, b) in enumerate(zip(seen["device"], seen["host"]))
                if a != b]
@@ -271,22 +482,25 @@ def serving_phase(dev) -> dict:
     from repro_torch.core.types import RouterConfig
     from repro_torch.data import stream as stream_lib
     from repro_torch.data import tokenizer as tok
-    from repro_torch.kernels.featurize import ops as featurize_ops
-    from repro_torch.kernels.linucb import ops as linucb_ops
     from repro_torch.serving.engine import ModelEngine
+    from repro_torch.serving.request import Request
     from repro_torch.serving.scheduler import PoolServer
 
     t0 = time.perf_counter()
     engines = {}
     for i, arch in enumerate(SERVE_ARCHS):
         cfg = for_mode(get_config(arch, vocab_size=tok.VOCAB_SIZE,
-                                  max_seq_len=192), "serve")
+                                  max_seq_len=192, use_pallas=True), "serve")
         engines[arch] = ModelEngine(arch, cfg, seed=i, max_batch=4,
                                     max_len=192, detokenize=tok.decode,
                                     prefill_chunk=8, device=dev)
+        moe = (f", {cfg.n_experts} experts top-{cfg.top_k} of width "
+               f"{cfg.moe_d_ff} + {cfg.n_shared_experts} shared"
+               if cfg.layout == "moe" else "")
         log("serve", f"{arch}: {cfg.n_layers}/{cfg.n_layers} layers (no "
-            f"depth cut), d_model {cfg.d_model}, d_ff {cfg.d_ff}, "
-            f"{cfg.param_count() / 1e9:.2f} B params in bf16")
+            f"depth cut), d_model {cfg.d_model}, d_ff {cfg.d_ff}{moe}, "
+            f"{cfg.param_count() / 1e9:.2f} B params "
+            f"({cfg.active_param_count() / 1e9:.2f} B active) in bf16")
     torch.cuda.synchronize()
     t_init = time.perf_counter() - t0
     router = GreenServRouter(RouterConfig(lam=0.4, energy_scale_wh=0.05),
@@ -315,8 +529,7 @@ def serving_phase(dev) -> dict:
     # Arrivals are enqueued one per step, as the launcher does; three
     # windows of the same run are profiled (after 20 steps, after 200, and
     # at the first step with decode ticks only), then the server drains.
-    featurize_ops.launches = 0
-    linucb_ops.launches = 0
+    reset_launches()
     pending, step_s, windows = list(arrivals), [], []
     triggers = (("prefill", lambda: len(step_s) >= 20),
                 ("backlog", lambda: len(step_s) >= 200),
@@ -335,19 +548,42 @@ def serving_phase(dev) -> dict:
         server.step()
         step_s.append(time.perf_counter() - t)
     server.run_until_drained()
+    # the MoE engine must run decode-only ticks at full width: where the
+    # router sent it too few, a decode slice goes straight into it
+    moe_eng, moe_direct = engines[MOE_ARCH], []
+    if moe_eng.tick_counts["decode"] < MOE_MIN_DECODE_TICKS:
+        for q in decode_slice[:moe_eng.max_batch]:
+            moe_direct.append(Request(
+                query=dataclasses.replace(q, uid=q.uid + 10_000),
+                prompt_tokens=tok.encode(q.text),
+                max_new_tokens=q.max_new_tokens))
+        moe_eng.submit_many(moe_direct)
+        done = []
+        while moe_eng.pending:
+            done += moe_eng.step()
+        if len(done) != len(moe_direct):
+            raise AssertionError(f"MoE decode slice: {len(done)}/"
+                                 f"{len(moe_direct)} answered")
     torch.cuda.synchronize()
     t_serve = time.perf_counter() - t1
-    launches = {"featurize": featurize_ops.launches,
-                "linucb": linucb_ops.launches}
+    launches = read_launches()
     if len(server.responses) != len(arrivals):
         raise AssertionError(f"{len(server.responses)}/{len(arrivals)} "
                              f"queries answered")
+    moe_ticks = sum(moe_eng.tick_counts.values())
+    if not (moe_eng.tick_counts["chunk"] and moe_eng.tick_counts["decode"]):
+        raise AssertionError(f"the MoE engine ran {moe_eng.tick_counts}: "
+                             f"it needs chunk and decode ticks")
+    if launches["moe_gating"] != moe_eng.cfg.n_layers * moe_ticks:
+        raise AssertionError(f"moe_gating launched {launches['moe_gating']} "
+                             f"times over {moe_ticks} MoE ticks of "
+                             f"{moe_eng.cfg.n_layers} layers")
     for name, eng in engines.items():
         if eng.nonfinite_ticks:
             raise AssertionError(f"{name}: {eng.nonfinite_ticks} ticks with "
                                  f"non-finite logits")
-    for name, n in launches.items():
-        if n <= 0:
+    for name in ("featurize", "linucb", "moe_gating"):
+        if launches[name] <= 0:
             raise AssertionError(f"the main path never launched {name}")
     resp = list(server.responses.values())
     decoded = sum(sum(e.decode_tokens.values()) for e in engines.values())
@@ -363,7 +599,8 @@ def serving_phase(dev) -> dict:
         f"{t_init:.3f} s); arms "
         f"{dict(zip(router.pool.names, map(int, router.selection_counts())))}; "
         f"{sum(r.output_tokens <= 1 for r in resp)} queries stopped at "
-        f"their first token")
+        f"their first token; {len(moe_direct)} decode-slice requests then "
+        f"went straight into {MOE_ARCH}")
     for name, e in engines.items():
         n_c, n_d = e.tick_counts["chunk"], e.tick_counts["decode"]
         s_c, s_d = e.tick_seconds["chunk"], e.tick_seconds["decode"]
@@ -378,10 +615,14 @@ def serving_phase(dev) -> dict:
             f"tok/s of decode-tick time)")
     log("serve", f"routing: decision {router.mean_decision_ms:.4f} ms/query, "
         f"host hashing {per_q['featurize']:.4f} ms/query, Flesch counts "
-        f"{per_q['complexity']:.4f} ms/query; launches {launches}")
+        f"{per_q['complexity']:.4f} ms/query; launches {launches} "
+        f"({moe_eng.cfg.n_layers} gating launches per MoE tick x "
+        f"{moe_ticks} ticks)")
+    weights = sum(p.numel() * p.element_size() for e in engines.values()
+                  for p in e.params.parameters())
     log("serve", f"max_memory_allocated {torch.cuda.max_memory_allocated(dev)}"
-        f" bytes; modeled energy "
-        f"{sum(r.energy_wh for r in resp):.6f} Wh")
+        f" bytes, of which the three engines' weights {weights} bytes; "
+        f"modeled energy {sum(r.energy_wh for r in resp):.6f} Wh")
     for key, what in (("busy", "kernels over the window's own wall time"),
                       ("busy_before", "kernels over the unprofiled steps "
                        "just before")):
@@ -389,7 +630,7 @@ def serving_phase(dev) -> dict:
         each = ", ".join(f"{w['label']} {w[key]:.4f}" for w in windows)
         log("profile", f"card busy share, {what}: {each} (min "
             f"{min(busy):.4f}, max {max(busy):.4f})")
-    return launches
+    return launches, engines
 
 
 def profile_window(server, pending, label: str, before_s) -> dict:
@@ -441,7 +682,183 @@ def profile_window(server, pending, label: str, before_s) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# 6. bf16 vs fp32 on two full-width granite layers
+# 6. one-shot prefill at full width through the flash kernel
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def recorded_gates():
+    """Record the expert indices of every gate call — through the gating
+    kernel's wrapper or the plain ``moe.top_k_gating`` — in call order."""
+    from repro_torch.kernels.moe_gating import ops as gating_ops
+    from repro_torch.models import moe
+
+    seen, real = [], (gating_ops.topk_gating, moe.top_k_gating)
+
+    def recording(fn):
+        def gate(logits, k):
+            w, i = fn(logits, k)
+            seen.append(i)
+            return w, i
+        return gate
+
+    gating_ops.topk_gating, moe.top_k_gating = map(recording, real)
+    try:
+        yield seen
+    finally:
+        gating_ops.topk_gating, moe.top_k_gating = real
+
+
+def logit_gap(got: torch.Tensor, want: torch.Tensor) -> tuple:
+    """(max |diff| over the range of ``want``, mean |diff| over its mean
+    |logit|), in fp32."""
+    got, want = got.float(), want.float()
+    return (float((got - want).abs().max() / want.abs().max()),
+            float((got - want).abs().mean() / want.abs().mean()))
+
+
+def first_layers(model, cfg, n: int) -> tuple:
+    """(a view of ``model`` holding only its first ``n`` layers, weights
+    shared, and ``cfg`` cut to ``n`` layers)."""
+    view = copy.copy(model)
+    view._modules = dict(model._modules)
+    view.layers = torch.nn.ModuleList(list(model.layers)[:n])
+    return view, dataclasses.replace(cfg, n_layers=n)
+
+
+def one_shot_and_chunked(dev, model, cfg, tokens, chunk: int) -> tuple:
+    """(``api.prefill``'s last-position logits, the chunked prefill's:
+    ``api.prefill_chunk`` over slabs of ``chunk`` into a fresh cache)."""
+    from repro_torch.models import api
+
+    one = api.prefill(model, {"tokens": tokens}, cfg)
+    b, s = tokens.shape
+    cache = api.init_cache(cfg, b, s, dev)
+    n_act = torch.full((b,), chunk, dtype=torch.int32, device=dev)
+    for start in range(0, s, chunk):
+        out, cache = api.prefill_chunk(
+            model, tokens[:, start:start + chunk], cache, cfg, n_act)
+    return one, out[:, -1]
+
+
+def moe_prefill_check(dev, model, cfg, batch) -> None:
+    """qwen2-moe's one-shot prefill at its first ``PREFILL_CHECK_DEPTH``
+    layers against (a) its chunked prefill at S = 512, in bf16 and, on the
+    same weights upcast, in fp32, and (b) its ``use_pallas=False`` path
+    (plain gating and ``flash_prefill``) on the phase's batch, in bf16;
+    then (b) again at full depth, printed, with the expert choices that
+    differ between the two paths (not checked: see PREFILL_REL_TOL)."""
+    from repro_torch.models import api, lm
+
+    s, chunk, n = 512, 64, PREFILL_CHECK_DEPTH
+    # capacity E/k so that no group drops a token: capacity is per dispatch
+    # group (the one-shot row is one group of 512, a chunk one of 64), and
+    # a token dropped by one path and kept by the other is a different
+    # computation, not rounding
+    nodrop = dataclasses.replace(cfg,
+                                 capacity_factor=cfg.n_experts / cfg.top_k)
+    toks = batch["tokens"][:1, :s]
+    view, cut = first_layers(model, nodrop, n)
+    one, chunked = one_shot_and_chunked(dev, view, cut, toks, chunk)
+    gap_c = logit_gap(chunked, one)
+    cut32 = dataclasses.replace(cut, dtype="float32", param_dtype="float32")
+    m32 = lm.DecoderLM(cut32, dev)
+    with torch.no_grad():
+        for p32, p16 in zip(m32.parameters(), view.parameters()):
+            p32.copy_(p16.float())
+    one, chunked = one_shot_and_chunked(dev, m32, cut32, toks, chunk)
+    gap_32 = logit_gap(chunked, one)
+    del m32, one, chunked
+    torch.cuda.empty_cache()
+    gaps_p = {}
+    for depth in (n, cfg.n_layers):
+        view, cut = first_layers(model, cfg, depth)
+        with recorded_gates() as kernel_idx:
+            fast = api.prefill(view, batch, cut)
+        with recorded_gates() as plain_idx:
+            plain = api.prefill(view, batch, dataclasses.replace(
+                cut, use_pallas=False))
+        differ = sum(int((torch.sort(a, dim=-1).values
+                          != torch.sort(b, dim=-1).values).sum())
+                     for a, b in zip(kernel_idx, plain_idx))
+        total = sum(a.numel() for a in kernel_idx)
+        gaps_p[depth] = logit_gap(plain, fast)
+        log("prefill", f"{MOE_ARCH}, first {depth} layers, bf16: use_pallas "
+            f"True vs False (B={batch['tokens'].shape[0]} "
+            f"S={batch['tokens'].shape[1]}) max |diff| "
+            f"{gaps_p[depth][0]:.5f} of the logit range, mean "
+            f"{gaps_p[depth][1]:.5f} of the mean |logit|; {differ} of "
+            f"{total} expert choices differ")
+    log("prefill", f"{MOE_ARCH}, first {n} layers: one-shot vs chunked "
+        f"(S={s}, chunks of {chunk}) max |diff| {gap_c[0]:.5f} of the logit "
+        f"range in bf16 (mean {gap_c[1]:.5f} of the mean |logit|), "
+        f"{gap_32[0]:.7f} in fp32 (mean {gap_32[1]:.7f})")
+    for what, rel, tol in (
+            ("one-shot vs chunked, bf16", gap_c[0], PREFILL_REL_TOL),
+            ("one-shot vs chunked, fp32", gap_32[0], PREFILL_FP32_REL_TOL),
+            ("use_pallas True vs False, bf16", gaps_p[n][0], PREFILL_REL_TOL)):
+        if not rel <= tol:
+            raise AssertionError(f"{MOE_ARCH}, {n} layers: {what} {rel:.7f} "
+                                 f"of the logit range > {tol}")
+    log("prefill", f"{MOE_ARCH}, first {n} layers: bf16 gaps within "
+        f"{PREFILL_REL_TOL}, fp32 within {PREFILL_FP32_REL_TOL} of the logit "
+        f"range (checked)")
+
+
+def prefill_phase(dev, engines) -> dict:
+    """``api.prefill`` on each served model at full width (the serving
+    engines' own weights and ``use_pallas=True`` configs), each driven with
+    the counts set to 0 just before and read just after; then qwen2-moe's
+    one-shot logits against its chunked prefill and its plain path at the
+    first layers."""
+    from repro_torch.data import tokenizer as tok
+    from repro_torch.models import api
+
+    rng = np.random.default_rng(17)
+    flash_launches, moe_case = 0, None
+    for arch, b, s in PREFILL_CASES:
+        eng = engines[arch]
+        cfg, model = eng.cfg, eng.params
+        batch = {"tokens": torch.from_numpy(
+            rng.integers(3, tok.VOCAB_SIZE, (b, s)).astype(np.int32)).to(dev)}
+        torch.cuda.synchronize()
+        reset_launches()
+        t = time.perf_counter()
+        logits = api.prefill(model, batch, cfg)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t
+        launches = read_launches()
+        want = {"featurize": 0, "linucb": 0, "flash_attention": cfg.n_layers,
+                "moe_gating": cfg.n_layers if cfg.layout == "moe" else 0}
+        if launches != want:
+            raise AssertionError(f"prefill {arch}: launches {launches}, "
+                                 f"expected {want}")
+        if (tuple(logits.shape) != (b, cfg.vocab_size)
+                or not torch.isfinite(logits).all()):
+            raise AssertionError(f"prefill {arch}: logits of shape "
+                                 f"{tuple(logits.shape)}, finite "
+                                 f"{bool(torch.isfinite(logits).all())}")
+        flash_launches += launches["flash_attention"]
+        reps = 2
+        t = time.perf_counter()
+        for _ in range(reps):
+            api.prefill(model, batch, cfg)
+        torch.cuda.synchronize()
+        sec = (time.perf_counter() - t) / reps
+        log("prefill", f"{arch} B={b} S={s}: launches {launches}; logits "
+            f"{tuple(logits.shape)} finite; {sec * 1e3:.3f} ms per prefill "
+            f"({b * s / sec:.1f} prompt tok/s; first call "
+            f"{first_s * 1e3:.3f} ms); windows "
+            f"{sorted(set(cfg.layer_windows(s)))}")
+        if cfg.layout == "moe":
+            moe_case = (model, cfg, batch)
+
+    moe_prefill_check(dev, *moe_case)
+    return {"flash_launches": flash_launches}
+
+
+# ---------------------------------------------------------------------------
+# 7. bf16 vs fp32 on two full-width granite layers
 # ---------------------------------------------------------------------------
 
 
@@ -455,7 +872,7 @@ def engine_crosscheck(dev) -> None:
     cfg32 = dataclasses.replace(cfg16, dtype="float32",
                                 param_dtype="float32")
     m16 = lm.init_lm(cfg16, seed=3, device=dev)
-    m32 = lm.DenseLM(cfg32, dev)
+    m32 = lm.DecoderLM(cfg32, dev)
     with torch.no_grad():
         for p32, p16 in zip(m32.parameters(), m16.parameters()):
             p32.copy_(p16.float())
@@ -516,36 +933,51 @@ def main() -> int:
     t = time.perf_counter()
     feat = featurize_phase(dev)
     lin = linucb_phase(dev)
+    gate = gating_phase(dev)
+    flash = flash_phase(dev)
     log("kernels", f"phase {time.perf_counter() - t:.2f} s")
     t = time.perf_counter()
     router_phase(dev)
     log("router", f"phase {time.perf_counter() - t:.2f} s")
     t = time.perf_counter()
-    launches = serving_phase(dev)
+    launches, engines = serving_phase(dev)
     log("serve", f"phase {time.perf_counter() - t:.2f} s")
+    t = time.perf_counter()
+    prefill = prefill_phase(dev, engines)
+    del engines
+    torch.cuda.empty_cache()
+    log("prefill", f"phase {time.perf_counter() - t:.2f} s")
     t = time.perf_counter()
     engine_crosscheck(dev)
     log("crosscheck", f"phase {time.perf_counter() - t:.2f} s")
 
-    # the main path (serving, enqueue one per step) routes admission
-    # batches of one: the kernel rows below are at Q = 1
+    # the serving path routes admission batches of one: the router kernels'
+    # rows are at Q = 1; its MoE decode ticks gate T = 4 rows; the flash
+    # row is granite's one-shot prefill (B = 2, S = 2048), and its launches
+    # are the prefill phase's, over the three models
     f1 = next(r for r in feat["rows"] if r["mode"] == "both" and r["q"] == 1)
     l1 = next(r for r in lin["rows"] if r["d"] == 12 and r["q"] == 1)
+    g4 = next(r for r in gate["rows"] if r["t"] == 4 and not r["tied"])
+    fa = flash["rows"][0]
+
+    def row(name, src, replaces, n, worst, r, library_ms=None):
+        return {"name": name, "route": "cuda",
+                "source": f"src/repro_torch/kernels/csrc/{src}",
+                "replaces": f"src/repro/kernels/{replaces}",
+                "launches": n, "max_abs_err": worst, "ms": r["ms"],
+                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                "bound_by": r["bound_by"], "library_ms": library_ms}
+
     kernels = [
-        {"name": "featurize", "route": "cuda",
-         "source": "src/repro_torch/kernels/csrc/featurize.cu",
-         "replaces": "src/repro/kernels/featurize/kernel.py:37",
-         "launches": launches["featurize"], "max_abs_err": feat["worst"],
-         "ms": f1["ms"], "plain_ms": f1["plain_ms"],
-         "bound_ms": f1["bound_ms"], "bound_by": f1["bound_by"],
-         "library_ms": None},
-        {"name": "linucb", "route": "cuda",
-         "source": "src/repro_torch/kernels/csrc/linucb.cu",
-         "replaces": "src/repro/kernels/linucb/kernel.py:25",
-         "launches": launches["linucb"], "max_abs_err": lin["worst"],
-         "ms": l1["ms"], "plain_ms": l1["plain_ms"],
-         "bound_ms": l1["bound_ms"], "bound_by": l1["bound_by"],
-         "library_ms": None},
+        row("featurize", "featurize.cu", "featurize/kernel.py:37",
+            launches["featurize"], feat["worst"], f1),
+        row("linucb", "linucb.cu", "linucb/kernel.py:25",
+            launches["linucb"], lin["worst"], l1),
+        row("moe_gating", "moe_gating.cu", "moe_gating/kernel.py:23",
+            launches["moe_gating"], gate["worst"], g4),
+        row("flash_attention", "flash_attention.cu",
+            "flash_attention/kernel.py:33", prefill["flash_launches"],
+            flash["worst"], fa, fa["library_ms"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,5 @@
-"""Architecture registry: the dense configs this package serves, plus
-reduced smoke variants.
+"""Architecture registry: the dense and MoE configs this package serves,
+plus reduced smoke variants.
 
 Usage:
     from repro_torch.configs import get_config, for_mode
@@ -11,10 +11,11 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, List
 
-from repro_torch.configs import granite_3_8b, h2o_danube_3_4b
+from repro_torch.configs import (granite_3_8b, h2o_danube_3_4b,
+                                 qwen2_moe_a2_7b)
 from repro_torch.models.config import ModelConfig, scaled_down
 
-_MODULES = [granite_3_8b, h2o_danube_3_4b]
+_MODULES = [granite_3_8b, h2o_danube_3_4b, qwen2_moe_a2_7b]
 
 REGISTRY: Dict[str, ModelConfig] = {m.ARCH_ID: m.CONFIG for m in _MODULES}
 ARCH_IDS: List[str] = list(REGISTRY)

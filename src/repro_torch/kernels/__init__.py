@@ -1,4 +1,5 @@
-"""Hand-written Hopper kernels for the router, each beside its plain
+"""Hand-written Hopper kernels — the router's (featurize, LinUCB) and the
+models' (MoE gating, flash-attention prefill) — each beside its plain
 PyTorch version.
 
 Each kernel package ships ``kernel.py`` (the ctypes launcher of the CUDA

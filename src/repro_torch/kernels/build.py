@@ -22,7 +22,8 @@ import tempfile
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("featurize.cu", "linucb.cu")
+SOURCES = ("featurize.cu", "linucb.cu", "moe_gating.cu",
+           "flash_attention.cu")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
@@ -33,6 +34,9 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "featurize_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "linucb_launch": (_P, _P, _P, _P, _I, _I, _I, ctypes.c_float, _P),
+    "moe_gating_launch": (_P, _P, _P, _I, _I, _I, _P),
+    "flash_attention_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                               _I, _I, _P),
 }
 
 

@@ -1,1 +1,2 @@
-"""Dense decoder-only models for the serving engines."""
+"""Dense and MoE decoder-only models for the serving engines and the
+one-shot prefill."""

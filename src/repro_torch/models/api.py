@@ -1,35 +1,54 @@
-"""Model API for the serving engine (the dense subset of the JAX
-package's ``models/api.py``):
+"""Model API for the serving engine and the one-shot prefill (the dense
+and MoE subset of the JAX package's ``models/api.py``):
 
     init_params(cfg, seed, device)          initialized model
+    forward(model, batch, cfg)              full-sequence logits + MoE aux
+    prefill(model, batch, cfg)              last-position logits, no cache
     init_cache(cfg, batch, max_len, device) decode cache
     serve_step(model, token, cache, cfg)    one-token decode
     prefill_chunk(model, toks, cache, …)    C-token prompt slab into the cache
     splice_prefix(cache, slot, k, v)        prompt-prefix KV into a slot
     supports_chunked_prefill(cfg)           which layouts take the chunked path
+
+``batch`` is a dict with ``tokens`` (B, S) int32.  ``device=None`` means
+the card (``device.resolve_device``); pass ``device="cpu"`` for the CPU.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Any, Dict, Tuple
 
 import torch
 
 from repro_torch.models import attention, lm
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.lm import Cache, DenseLM
+from repro_torch.models.lm import Cache, DecoderLM, ForwardOut
+
+Batch = Dict[str, Any]
 
 
-def init_params(cfg: ModelConfig, seed: int = 0,
-                device: torch.device = torch.device("cpu")) -> DenseLM:
+def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> DecoderLM:
     return lm.init_lm(cfg, seed, device)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
-               device: torch.device = torch.device("cpu")) -> Cache:
+               device=None) -> Cache:
     return lm.init_cache(cfg, batch, max_len, device)
 
 
-def serve_step(model: DenseLM, token: torch.Tensor, cache: Cache,
+def forward(model: DecoderLM, batch: Batch, cfg: ModelConfig) -> ForwardOut:
+    """Full-sequence logits (B, S, V) and the MoE aux loss."""
+    return lm.forward(model, batch["tokens"], cfg)
+
+
+def prefill(model: DecoderLM, batch: Batch, cfg: ModelConfig) -> torch.Tensor:
+    """Next-token logits for the *last* position only (B, V): the one-shot
+    prefill recomputes the whole prompt and fills no cache (the serving
+    engine uses ``prefill_chunk``, which fills the decode cache)."""
+    hidden, _ = lm.forward_hidden(model, batch["tokens"], cfg)
+    return model.head(hidden[:, -1:], cfg)[:, 0]
+
+
+def serve_step(model: DecoderLM, token: torch.Tensor, cache: Cache,
                cfg: ModelConfig) -> Tuple[torch.Tensor, Cache]:
     """One new token against the cache: (logits (B,1,V), cache)."""
     return lm.decode_step(model, token, cache, cfg)
@@ -50,7 +69,7 @@ def splice_prefix(cache: Cache, slot: int, k_block, v_block) -> Cache:
     return cache
 
 
-def prefill_chunk(model: DenseLM, tokens: torch.Tensor, cache: Cache,
+def prefill_chunk(model: DecoderLM, tokens: torch.Tensor, cache: Cache,
                   cfg: ModelConfig, n_active: torch.Tensor
                   ) -> Tuple[torch.Tensor, Cache]:
     """Populate the decode cache with a (B, C) slab of prompt tokens at

@@ -1,12 +1,15 @@
-"""GQA attention for serving: chunked prefill against a decode cache, and
-single-token decode, over full-depth per-slot KV caches.
+"""GQA attention: one-shot prefill over a whole sequence, chunked prefill
+against a decode cache, and single-token decode over full-depth per-slot
+KV caches.
 
 One code path serves full and sliding-window attention — the per-layer
-``window`` scalar parameterizes the mask (window == cache depth ⇒ full
-causal attention).  Scores and softmax run in float32 with K/V read from
-their storage dtype.  The cache writes happen in place: the JAX package
-threads the cache through ``jit`` with donated buffers, which is the same
-single copy updated where it lies.
+``window`` scalar parameterizes the mask (window == sequence or cache
+depth ⇒ full causal attention).  Scores and softmax run in float32 with
+K/V read from their storage dtype.  One-shot prefill attends through the
+flash-attention kernel under ``cfg.use_pallas`` and through the blocked
+``flash_prefill`` otherwise.  The cache writes happen in place: the JAX
+package threads the cache through ``jit`` with donated buffers, which is
+the same single copy updated where it lies.
 """
 from __future__ import annotations
 
@@ -15,6 +18,7 @@ from typing import Tuple
 import torch
 from torch import nn
 
+from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import apply_rope, param
 
@@ -52,6 +56,54 @@ def project_qkv(params: Attention, x: torch.Tensor, positions: torch.Tensor,
 
 def _neg_inf(like: torch.Tensor) -> torch.Tensor:
     return torch.tensor(NEG_INF, dtype=torch.float32, device=like.device)
+
+
+def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  window: int, chunk: int) -> torch.Tensor:
+    """The JAX package's blocked jnp prefill attention (causal).
+
+    q: (B, Sq, Hq, hd); k, v: (B, Sk, Hk, hd) → (B, Sq, Hq, hd).  The keys
+    are cut into the reference's blocks (Sk // chunk of them, or one block
+    when that does not divide Sk) and visited in order with an fp32 online
+    softmax.  Unlike the flash kernel, scores are scaled after the q·k
+    product and masked pairs are not zeroed in p (a row's fully masked
+    leading blocks are erased by the correction factor once a visible key
+    arrives).  The reference also blocks the queries; every query row is
+    independent, so all rows go through each key block at once here.
+    """
+    b, sq, hq, hd = q.shape
+    sk, hk = k.shape[1], k.shape[2]
+    group = hq // hk
+    scale = hd ** -0.5
+    n_k = max(sk // chunk, 1)
+    if sk % n_k:
+        n_k = 1
+    k_chunk = sk // n_k
+    qf = q.reshape(b, sq, hk, group, hd).float()
+    q_pos = torch.arange(sq, device=q.device)
+    neg_inf = _neg_inf(qf)
+    acc = torch.zeros((b, hk, group, sq, hd), dtype=torch.float32,
+                      device=q.device)
+    m = torch.full((b, hk, group, sq), NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros_like(m)
+    for ki in range(n_k):
+        k_tile = k[:, ki * k_chunk:(ki + 1) * k_chunk].float()
+        v_tile = v[:, ki * k_chunk:(ki + 1) * k_chunk].float()
+        k_pos = ki * k_chunk + torch.arange(k_chunk, device=q.device)
+        s = torch.einsum("bqhgd,bkhd->bhgqk", qf, k_tile) * scale
+        mask = ((k_pos[None, :] <= q_pos[:, None])
+                & (k_pos[None, :] > q_pos[:, None] - window))
+        s = torch.where(mask, s, neg_inf)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum("bhgqk,bkhd->bhgqd", p,
+                                                   v_tile)
+        m = m_new
+    out = acc / l.clamp(min=1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, hd).to(q.dtype)
 
 
 def decode_attend(q: torch.Tensor, k_cache: torch.Tensor,
@@ -146,6 +198,22 @@ def attention_prefill_chunk(params: Attention, x: torch.Tensor,
     write_chunk_(k_cache, k_new, lengths, active)
     write_chunk_(v_cache, v_new, lengths, active)
     out = chunk_attend(q, k_cache, v_cache, window, positions)
+    return torch.einsum("bshk,hkd->bsd", out, params.wo.to(dt))
+
+
+def attention_prefill(params: Attention, x: torch.Tensor,
+                      positions: torch.Tensor, window: int,
+                      cfg: ModelConfig) -> torch.Tensor:
+    """One causal self-attention layer over a whole sequence (one-shot
+    prefill): x (B, S, d), positions (B, S) → out (B, S, d).  Attends
+    through the flash-attention kernel's wrapper under ``cfg.use_pallas``,
+    else through ``flash_prefill``."""
+    dt = cfg.torch_dtype()
+    q, k, v = project_qkv(params, x, positions, cfg)
+    if cfg.use_pallas:
+        out = fa_ops.flash_attention(q, k, v, window)
+    else:
+        out = flash_prefill(q, k, v, window, cfg.attn_chunk)
     return torch.einsum("bshk,hkd->bsd", out, params.wo.to(dt))
 
 

@@ -3,8 +3,9 @@
 One ``ModelConfig`` describes dense GQA transformers (full / sliding-window /
 local:global interleaved attention), MoE, RWKV6, Mamba2 hybrids and
 encoder-decoders — the JAX package's config language, copied as plain data.
-The model code of this package serves the ``dense`` layout; the other
-layouts raise ``NotImplementedError`` where model code would need them.
+The model code of this package serves the ``dense`` and ``moe`` layouts;
+the other layouts raise ``NotImplementedError`` where model code would
+need them.
 """
 from __future__ import annotations
 
@@ -74,7 +75,8 @@ class ModelConfig:
     kv_update: str = "dus"            # dus | where — decode-cache write strategy:
                                       # "where" (masked elementwise) is the only
                                       # gather-free form when S is sharded
-    use_pallas: bool = False          # the JAX package's kernel switch (plain data here)
+    use_pallas: bool = False          # kernel switch: MoE gating and one-shot
+                                      # prefill attention through kernels/
 
     def __post_init__(self):
         if self.head_dim == 0:

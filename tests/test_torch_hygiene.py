@@ -75,3 +75,29 @@ def test_chip_smoke_refuses_alone_in_a_directory(tmp_path):
     out = _run_smoke(script, tmp_path)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+KERNELS = ("featurize", "linucb", "moe_gating", "flash_attention")
+
+
+def test_every_cuda_source_is_built_and_names_its_tpu_kernel():
+    """Each ``csrc/*.cu`` is in the build's source list (so a checkout
+    builds it), and each says which Pallas kernel it replaces."""
+    from repro_torch.kernels import build
+    csrc = PORT / "kernels" / "csrc"
+    assert sorted(build.SOURCES) == sorted(p.name for p in csrc.glob("*.cu"))
+    for name in KERNELS:
+        src = (csrc / f"{name}.cu").read_text()
+        assert f"src/repro/kernels/{name}/kernel.py" in src
+        assert (ROOT / "src" / "repro" / "kernels" / name / "kernel.py").exists()
+        assert f"{name}_launch" in build._SIGNATURES
+
+
+@pytest.mark.parametrize("name", KERNELS)
+def test_kernel_packages_have_wrapper_launcher_and_plain_version(name):
+    import importlib
+    pkg = PORT / "kernels" / name
+    assert {"kernel.py", "ops.py", "ref.py"} <= {p.name for p in
+                                                 pkg.glob("*.py")}
+    ops = importlib.import_module(f"repro_torch.kernels.{name}.ops")
+    assert ops.launches == 0 or isinstance(ops.launches, int)

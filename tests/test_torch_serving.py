@@ -65,7 +65,7 @@ def model_pair(request):
     pcfg = get_config(arch, **F32)
     params = jax_api.init_params(jcfg, jax.random.PRNGKey(3))
     return arch, jcfg, pcfg, params, params_from_jax(
-        jax.tree.map(np.asarray, params), pcfg)
+        jax.tree.map(np.asarray, params), pcfg, device="cpu")
 
 
 def _close(a, b, atol=1e-4):
@@ -78,7 +78,7 @@ def test_prefill_chunk_and_decode_logits_match_jax(model_pair):
     _, jcfg, pcfg, params, model = model_pair
     rng = np.random.default_rng(0)
     jcache = jax_lm.init_cache(jcfg, 2, MAX_LEN)
-    pcache = lm.init_cache(pcfg, 2, MAX_LEN)
+    pcache = lm.init_cache(pcfg, 2, MAX_LEN, device="cpu")
     for step in range(3):                          # two slabs, then decode
         tokens = rng.integers(3, tok.VOCAB_SIZE, (2, 8)).astype(np.int32)
         n_active = np.array([8, 5 - step], np.int32)
@@ -109,8 +109,8 @@ def test_chunk_of_one_equals_decode_step(model_pair):
     the decode step computes (the engine's mixed ticks rely on it)."""
     _, _, pcfg, _, model = model_pair
     token = torch.tensor([[7], [9]], dtype=torch.int32)
-    c1 = lm.init_cache(pcfg, 2, MAX_LEN)
-    c2 = lm.init_cache(pcfg, 2, MAX_LEN)
+    c1 = lm.init_cache(pcfg, 2, MAX_LEN, device="cpu")
+    c2 = lm.init_cache(pcfg, 2, MAX_LEN, device="cpu")
     a, _ = lm.prefill_chunk_step(model, token, c1, pcfg,
                                  torch.ones(2, dtype=torch.int32))
     b, _ = lm.decode_step(model, token, c2, pcfg)
@@ -168,7 +168,7 @@ def test_pool_server_run_matches_jax(equal_energy_constants):
         pengines[arch] = ModelEngine(
             arch, pcfg, max_batch=2, max_len=MAX_LEN, prefill_chunk=8,
             params=params_from_jax(jax.tree.map(np.asarray, jeng.params),
-                                   pcfg), device="cpu")
+                                   pcfg, device="cpu"), device="cpu")
     jrouter = JaxRouter(JaxRouterConfig(lam=0.4, energy_scale_wh=0.05),
                         JaxModelPool([e.profile for e in jengines.values()]))
     prouter = GreenServRouter(
@@ -200,7 +200,8 @@ def test_pool_server_run_matches_jax(equal_energy_constants):
 def test_unported_serving_options_raise():
     pcfg = get_config("granite-3-8b", **F32)
     with pytest.raises(NotImplementedError):
-        lm.init_cache(get_config("h2o-danube-3-4b", **F32), 1, 128)
+        lm.init_cache(get_config("h2o-danube-3-4b", **F32), 1, 128,
+                      device="cpu")
     eng = ModelEngine("g", pcfg, max_len=32, device="cpu")
     router = GreenServRouter(RouterConfig(), ModelPool([eng.profile]),
                              device="cpu")
@@ -287,10 +288,24 @@ def test_engine_tick_counters_add_up():
 def test_serve_mode_stores_bf16_and_serves():
     pcfg = for_mode(get_config("granite-3-8b", smoke=True,
                                vocab_size=tok.VOCAB_SIZE), "serve")
-    model = api.init_params(pcfg, seed=0)
+    model = api.init_params(pcfg, seed=0, device="cpu")
     assert model.layers[0].mlp.wo.dtype == torch.bfloat16
-    cache = api.init_cache(pcfg, 1, 16)
+    cache = api.init_cache(pcfg, 1, 16, device="cpu")
     logits, cache = api.prefill_chunk(model, torch.tensor([[1, 5, 9, 0]]),
                                       cache, pcfg, torch.tensor([3]))
     assert logits.dtype == torch.bfloat16 and torch.isfinite(logits).all()
     assert int(cache["length"][0]) == 3
+
+
+def test_model_entry_points_default_to_the_card(monkeypatch):
+    """``device=None`` means the card: with no CUDA device visible, every
+    model entry point raises instead of quietly running on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    pcfg = get_config("granite-3-8b", **F32)
+    for call in (lambda: api.init_params(pcfg),
+                 lambda: api.init_cache(pcfg, 1, 16),
+                 lambda: lm.init_lm(pcfg),
+                 lambda: lm.init_cache(pcfg, 1, 16),
+                 lambda: params_from_jax({}, pcfg)):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()

@@ -7,31 +7,47 @@ Phases, in order; any failure raises and the script exits non-zero:
 
   1. the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from ``src/repro_torch/kernels/csrc``;
-  3. kernels: the wrappers of featurize, LinUCB, MoE gating and flash
-     attention against their plain PyTorch versions on the card
-     (featurize 1e-5, LinUCB 1e-4, gating indices exact and weights 1e-6,
-     flash one bf16 unit in bf16 and 2e-5 in fp32, causal danube with
-     its window included) at the main paths' shapes, timed with CUDA
-     events beside their bounds and, for flash, PyTorch's own attention
-     call;
+  3. kernels: the wrappers of featurize, LinUCB, MoE gating, flash
+     attention, the RWKV6 WKV scan and the Mamba2 SSD scan against their
+     plain PyTorch versions on the card (featurize 1e-5, LinUCB 1e-4,
+     gating indices exact and weights 1e-6, flash one bf16 unit in bf16
+     and 2e-5 in fp32, causal danube with its window included and
+     zamba2's hd 112; WKV at B=2 S=2048 H=32 and SSD at B=1 S=4096 H=112
+     N=64 in the models' dtypes with y at one bf16 unit, the same shapes
+     in fp32 with a nonzero initial state at 2e-4 (WKV) and 3e-4 (SSD),
+     and a ragged S=100; final states fp32 at 2e-4 / 3e-4) at the main
+     paths' shapes, timed with CUDA events beside their bounds and, for
+     flash, PyTorch's own attention call;
   4. router: one 64-query stream through twin routers on the card, device
      featurize vs host featurize — arms, labels, clusters and bins must be
      identical;
-  5. serving: ``PoolServer`` over three full-width engines (granite-3-8b,
-     h2o-danube-3-4b, qwen2-moe-a2.7b; bf16, ``use_pallas=True``, random
-     weights from a seed) on a synthetic query stream plus a decode slice
-     of short prompts — every query answered, finite logits, the router
-     kernels and the gating kernel launched by the main path (24 gating
-     launches per MoE tick), real decode work — with three windows of the
-     run under torch.profiler for the card's busy share and the top
-     kernels;
-  6. one-shot prefill: ``api.prefill`` on the three served models at
-     full width (granite B=2 S=2048, danube B=1 S=6144, qwen2-moe B=2
-     S=2048) through the flash kernel at every layer and the gating
-     kernel at every MoE layer; finite logits; qwen2-moe's one-shot
-     logits at its first 2 layers against its chunked prefill (S=512, in
-     bf16 and fp32) and against the ``use_pallas=False`` path;
-  7. engine cross-check: two full-width granite layers, bf16 against fp32
+  5. serving: ``PoolServer`` over four full-width engines (granite-3-8b,
+     rwkv6-1.6b, qwen2-moe-a2.7b, h2o-danube-3-4b; bf16,
+     ``use_pallas=True``, random weights from a seed) on a synthetic
+     query stream plus a decode slice of short prompts — every query
+     answered, finite logits, the router kernels and the gating kernel
+     launched by the main path (24 gating launches per MoE tick), real
+     decode work, rwkv6 fed its prompts token-wise; a slice of the decode
+     prompts goes straight into any engine the router sent fewer than 4
+     queries — with three windows of the run under torch.profiler for the
+     card's busy share and the top kernels;
+  6. one-shot prefill: ``api.prefill`` on the four served models at full
+     width (granite B=2 S=2048, danube B=1 S=6144, qwen2-moe B=2 S=2048,
+     rwkv6 B=2 S=2048) through the flash kernel at every attention layer,
+     the gating kernel at every MoE layer and the WKV kernel at every
+     RWKV layer; finite logits; qwen2-moe's one-shot logits at its first
+     2 layers against its chunked prefill (S=512, in bf16 and fp32) and
+     against the ``use_pallas=False`` path; rwkv6's one-shot logits at
+     its first 2 layers against its token-wise ``serve_step`` (S=512, bf16
+     and fp32) and against the ``use_pallas=False`` path;
+  7. the hybrid, after the four engines are freed: zamba2-7b at full
+     width (81 Mamba2 layers and one shared attention block at 13 sites,
+     bf16, ``use_pallas=True``), ``api.prefill`` at B=1 S=4096 through the
+     SSD kernel at every Mamba layer and the flash kernel at every site,
+     the same one-shot vs token-wise and ``use_pallas`` checks as rwkv6,
+     then a ``ModelEngine`` on the same weights serving 4 requests
+     token-wise (Mamba decode and the shared block's decode at 13 sites);
+  8. engine cross-check: two full-width granite layers, bf16 against fp32
      on the same weights.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
@@ -81,7 +97,12 @@ FLASH_BF16_REL = 2.0 ** -7
 BF16_REL_TOL = 0.25
 # qwen2-moe's one-shot prefill against its chunked prefill and against the
 # use_pallas=False path, at the model's first PREFILL_CHECK_DEPTH layers
-# (weights shared with the served engine), as a share of the logit range.
+# (weights shared with the served engine), as a share of the logit range;
+# rwkv6's and zamba2's one-shot prefill against their token-wise
+# serve_step and against use_pallas=False, at the same depth and limits
+# (the same reasons: the paths round to bf16 at different places, and the
+# recurrent models' one-shot scan and their decode step differ in the
+# order of their fp32 sums).
 # With random weights the stack is chaotic: a rounding gap moves a router
 # logit across a near-tie, the token goes to another expert, and attention
 # spreads that to every later token, so at full depth the paths differ by
@@ -94,31 +115,72 @@ BF16_REL_TOL = 0.25
 PREFILL_CHECK_DEPTH = 2
 PREFILL_REL_TOL = 0.05
 PREFILL_FP32_REL_TOL = 1e-4
+# the WKV and SSD scans in fp32, against their plain versions: the
+# tolerances of tests/test_kernels.py for the Pallas kernels (atol and
+# rtol); the per-token form and the plain recurrence sum in other orders
+WKV_FP32_TOL = 2e-4
+SSD_FP32_TOL = 3e-4
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 FP32_FLOPS = 67e12             # H100 SXM fp32, outside the tensor cores
 BF16_FLOPS = 989e12            # H100 SXM bf16 tensor cores, dense
 MOE_ARCH = "qwen2-moe-a2.7b"
-SERVE_ARCHS = ("granite-3-8b", "h2o-danube-3-4b", MOE_ARCH)
+RWKV_ARCH = "rwkv6-1.6b"
+HYBRID_ARCH = "zamba2-7b"
+# the serving launcher's default pool, in its order, and danube: arms that
+# are untried tie, ties go to the lowest index, and an arm late in the
+# pool may get no query from an 80-query stream (rwkv6 got none as the
+# fourth arm)
+SERVE_ARCHS = ("granite-3-8b", RWKV_ARCH, MOE_ARCH, "h2o-danube-3-4b")
+# the router phase's pool profiles: (family, billions of parameters)
+ARCH_PROFILES = {"granite-3-8b": ("dense", 8.2), RWKV_ARCH: ("rwkv", 1.3),
+                 MOE_ARCH: ("moe", 14.3), "h2o-danube-3-4b": ("dense", 4.0)}
+SERVE_MAX_LEN = 192            # the serving launcher's max_len and
+SERVE_CHUNK = 8                # prefill_chunk (rwkv6's clamps to 1)
 PROFILE_STEPS = 5              # scheduler steps per profiled window
 MOE_MIN_DECODE_TICKS = 16      # below this, a decode slice goes straight
                                # into the MoE engine after the pool drains
+MIN_ROUTED = 4                 # and into any engine the router sent fewer
+                               # queries: with every model's accuracy 0
+                               # (random weights), the bandit settles on
+                               # the cheapest arm
 # one-shot prefill at full width: (arch, batch, sequence)
 PREFILL_CASES = (("granite-3-8b", 2, 2048), ("h2o-danube-3-4b", 1, 6144),
-                 (MOE_ARCH, 2, 2048))
-# flash kernel shapes: the three prefills' attention (window as
-# ``layer_windows`` gives it), danube's again in fp32 (the causal and
-# window masks at a tight tolerance) and one non-causal fp32 shape
+                 (MOE_ARCH, 2, 2048), (RWKV_ARCH, 2, 2048))
+HYBRID_PREFILL = (1, 4096)     # zamba2-7b's one-shot prefill (batch, seq)
+TOKENWISE_S = 512              # prompt length of the one-shot vs token-wise
+                               # checks (first PREFILL_CHECK_DEPTH layers)
+TOKENWISE_FULL_S = 128         # and of the full-depth gaps, printed
+HYBRID_REQUESTS = (4, 32, 16)  # zamba2 engine: requests, prompt, new tokens
+# flash kernel shapes: the four prefills' attention (window as
+# ``layer_windows`` gives it; zamba2's shared block at window S), danube's
+# again in fp32 (the causal and window masks at a tight tolerance) and one
+# non-causal fp32 shape
 # (name, b, sq, sk, hq, hk, hd, window, causal, dtype)
 FLASH_CASES = (
     ("granite-3-8b", 2, 2048, 2048, 32, 8, 128, 2048, True, torch.bfloat16),
     ("h2o-danube-3-4b", 1, 6144, 6144, 32, 8, 120, 4096, True,
      torch.bfloat16),
     (MOE_ARCH, 2, 2048, 2048, 16, 16, 128, 2048, True, torch.bfloat16),
+    (HYBRID_ARCH, 1, 4096, 4096, 32, 32, 112, 4096, True, torch.bfloat16),
     ("h2o-danube-3-4b fp32", 1, 6144, 6144, 32, 8, 120, 4096, True,
      torch.float32),
     ("non-causal", 1, 512, 768, 8, 2, 120, 640, False, torch.float32),
 )
 GATING_T = (4, 32, 4096)       # decode tick, chunk tick (4 x 8), a prefill
+# WKV shapes: rwkv6's prefill (B, S, H), its dtypes (r, k, v bf16; logw, u
+# and the zero initial state fp32, as forward_hidden passes them), then
+# the same in fp32 with a nonzero initial state, then a ragged S
+# (name, b, s, h, dtype, initial state)
+WKV_CASES = ((RWKV_ARCH, 2, 2048, 32, torch.bfloat16, "zeros"),
+             ("fp32", 2, 2048, 32, torch.float32, "random"),
+             ("ragged", 1, 100, 3, torch.float32, "random"))
+# SSD shapes: zamba2's prefill (B, S, H, N) in its dtypes (x, B, C bf16;
+# dt and A fp32; no initial state, as mamba_prefill passes it), the same
+# in fp32 with a nonzero initial state, then a ragged S
+# (name, b, s, h, n, dtype, initial state)
+SSD_CASES = ((HYBRID_ARCH, 1, 4096, 112, 64, torch.bfloat16, None),
+             ("fp32", 1, 4096, 112, 64, torch.float32, "random"),
+             ("ragged", 2, 100, 3, 64, torch.float32, "random"))
 
 
 def log(phase: str, msg: str) -> None:
@@ -158,9 +220,12 @@ def _ops_modules() -> dict:
     from repro_torch.kernels.featurize import ops as featurize_ops
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.linucb import ops as linucb_ops
+    from repro_torch.kernels.mamba2 import ops as mamba2_ops
     from repro_torch.kernels.moe_gating import ops as gating_ops
+    from repro_torch.kernels.rwkv6 import ops as rwkv6_ops
     return {"featurize": featurize_ops, "linucb": linucb_ops,
-            "moe_gating": gating_ops, "flash_attention": flash_ops}
+            "moe_gating": gating_ops, "flash_attention": flash_ops,
+            "rwkv6": rwkv6_ops, "mamba2": mamba2_ops}
 
 
 def reset_launches() -> None:
@@ -395,6 +460,132 @@ def flash_phase(dev) -> dict:
     return {"rows": rows, "worst": worst}
 
 
+def scan_errors(name: str, y, y_ref, st, st_ref, fp32_tol: float) -> tuple:
+    """Hold a scan kernel's (y, final state) against its plain version's:
+    y at one bf16 unit (``FLASH_BF16_REL`` of |ref| plus the output's RMS,
+    for the same reason as flash) when it is bf16, else at ``fp32_tol``
+    (atol and rtol); the fp32 state at ``fp32_tol``.  Returns (max abs
+    error over both, the worst share of its limit)."""
+    bf16 = y.dtype == torch.bfloat16
+    y, y_ref = y.float(), y_ref.float()
+    dy, ds = (y - y_ref).abs(), (st - st_ref).abs()
+    ratios = []
+    for diff, ref, unit in ((dy, y_ref, bf16), (ds, st_ref, False)):
+        if unit:
+            rms = float(ref.pow(2).mean().sqrt())
+            limit = FLASH_BF16_REL * (ref.abs() + rms)
+        else:
+            limit = fp32_tol * (1 + ref.abs())
+        ratios.append(float((diff / limit).max()))
+    finite = bool(torch.isfinite(y).all() and torch.isfinite(st).all())
+    err = max(float(dy.max()), float(ds.max()))
+    if not (finite and max(ratios) <= 1):
+        raise AssertionError(f"{name}: max abs err {err} (y {ratios[0]:.3g}, "
+                             f"state {ratios[1]:.3g} of the limit), finite "
+                             f"{finite}")
+    return err, max(ratios)
+
+
+def wkv_phase(dev) -> dict:
+    from repro_torch.kernels.rwkv6 import ops
+    from repro_torch.kernels.rwkv6.ref import wkv_ref
+
+    rng = np.random.default_rng(23)
+    kd, rows, worst = 64, [], 0.0
+    for name, b, s, h, dt, init in WKV_CASES:
+        shape = (b, s, h, kd)
+        r, k, v = (torch.from_numpy(rng.standard_normal(shape, np.float32)
+                                    * 0.5).to(dev, dt) for _ in range(3))
+        # the model's log decay, -exp(base + lora) with base in [-8, -4)
+        # (the init rule) and a spread of LoRA terms; a few entries far
+        # below exp's range, whose decay must underflow to 0, not NaN
+        logw = -np.exp(rng.uniform(-8.0, -4.0, shape)
+                       + rng.standard_normal(shape))
+        logw[:, :4, 0, :8] = -1e30
+        logw = torch.from_numpy(logw.astype(np.float32)).to(dev)
+        u = torch.from_numpy(rng.standard_normal((h, kd), np.float32)
+                             * 0.5).to(dev)
+        s0 = (torch.zeros((b, h, kd, kd), device=dev) if init == "zeros"
+              else torch.from_numpy(rng.standard_normal((b, h, kd, kd),
+                                                        np.float32)
+                                    * 0.1).to(dev))
+        y, st = ops.wkv(r, k, v, logw, u, s0)
+        y_ref, st_ref = wkv_ref(r, k, v, logw, u, s0)
+        torch.cuda.synchronize()
+        label = f"wkv {name} {'bf16' if dt == torch.bfloat16 else 'fp32'}"
+        err, ratio = scan_errors(label, y, y_ref, st, st_ref, WKV_FP32_TOL)
+        worst = max(worst, err)
+        ms = cuda_ms(lambda: ops.wkv(r, k, v, logw, u, s0))
+        plain_ms = cuda_ms(lambda: wkv_ref(r, k, v, logw, u, s0))
+        # bytes: r, k, v, logw, u and s0 read once, y and the state
+        # written once; operations per token and head: r.S (2 K^2), the
+        # decay-and-add update (3 K^2), the bonus sum r.u.k and its product
+        # with v (5 K) and exp(logw) (K)
+        n_bytes = ((3 + 1) * r.numel() * r.element_size() + logw.numel() * 4
+                   + u.numel() * 4 + 2 * s0.numel() * 4)
+        n_ops = b * s * h * (5 * kd * kd + 6 * kd)
+        b_ms, b_by = bound(n_bytes, n_ops)
+        rows.append(dict(name=name, shape=(b, s, h, kd, str(dt)), err=err,
+                         ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                         bound_by=b_by))
+        log("kernels", f"rwkv6 {label} B={b} S={s} H={h} K={kd} s0={init}: "
+            f"err {err:.3g} ({ratio:.3f} of the limit), kernel {ms:.6f} ms, "
+            f"plain {plain_ms:.6f} ms, bound {b_ms:.6f} ms ({b_by}), "
+            f"{n_ops / ms / 1e9:.1f} GFLOP/s")
+        del r, k, v, logw, y, y_ref
+        torch.cuda.empty_cache()
+    return {"rows": rows, "worst": worst}
+
+
+def ssd_phase(dev) -> dict:
+    from repro_torch.kernels.mamba2 import ops
+    from repro_torch.kernels.mamba2.ref import ssd_ref
+
+    rng = np.random.default_rng(29)
+    p, rows, worst = 64, [], 0.0
+    for name, b, s, h, n, dt, init in SSD_CASES:
+        x = torch.from_numpy(rng.standard_normal((b, s, h, p), np.float32)
+                             * 0.5).to(dev, dt)
+        B, C = (torch.from_numpy(rng.standard_normal((b, s, n), np.float32)
+                                 * 0.5).to(dev, dt) for _ in range(2))
+        # softplus'd steps and A = -exp(a_log), a_log = log U[1, 16) (the
+        # init rule)
+        dts = torch.nn.functional.softplus(torch.from_numpy(
+            rng.standard_normal((b, s, h), np.float32)).to(dev))
+        A = -torch.from_numpy(rng.uniform(1.0, 16.0, h)
+                              .astype(np.float32)).to(dev)
+        h0 = (None if init is None
+              else torch.from_numpy(rng.standard_normal((b, h, p, n),
+                                                        np.float32)
+                                    * 0.1).to(dev))
+        y, st = ops.ssd(x, dts, B, C, A, h0)
+        y_ref, st_ref = ssd_ref(x, dts, B, C, A, h0)
+        torch.cuda.synchronize()
+        label = f"ssd {name} {'bf16' if dt == torch.bfloat16 else 'fp32'}"
+        err, ratio = scan_errors(label, y, y_ref, st, st_ref, SSD_FP32_TOL)
+        worst = max(worst, err)
+        ms = cuda_ms(lambda: ops.ssd(x, dts, B, C, A, h0))
+        plain_ms = cuda_ms(lambda: ssd_ref(x, dts, B, C, A, h0))
+        # bytes: x, dt, B, C, A and h0 read once, y and the state written
+        # once; operations per token and head: exp(dt A) (2), dt x (P),
+        # the decay-and-add update (3 P N) and C.h (2 P N)
+        n_bytes = (2 * x.numel() * x.element_size() + dts.numel() * 4
+                   + 2 * B.numel() * B.element_size() + A.numel() * 4
+                   + (1 if h0 is None else 2) * b * h * p * n * 4)
+        n_ops = b * s * h * (5 * p * n + p + 2)
+        b_ms, b_by = bound(n_bytes, n_ops)
+        rows.append(dict(name=name, shape=(b, s, h, p, n, str(dt)), err=err,
+                         ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                         bound_by=b_by))
+        log("kernels", f"mamba2 {label} B={b} S={s} H={h} P={p} N={n} "
+            f"h0={init}: err {err:.3g} ({ratio:.3f} of the limit), kernel "
+            f"{ms:.6f} ms, plain {plain_ms:.6f} ms, bound {b_ms:.6f} ms "
+            f"({b_by}), {n_ops / ms / 1e9:.1f} GFLOP/s")
+        del x, B, C, dts, y, y_ref
+        torch.cuda.empty_cache()
+    return {"rows": rows, "worst": worst}
+
+
 # ---------------------------------------------------------------------------
 # 4. device vs host routing
 # ---------------------------------------------------------------------------
@@ -412,10 +603,9 @@ def router_phase(dev) -> None:
 
     routers = {}
     for featurize in ("device", "host"):
-        pool = ModelPool([ModelProfile(name=a, family=f, params_b=p)
-                          for a, f, p in zip(SERVE_ARCHS,
-                                             ("dense", "dense", "moe"),
-                                             (8.2, 4.0, 14.3))])
+        pool = ModelPool([ModelProfile(name=a, family=ARCH_PROFILES[a][0],
+                                       params_b=ARCH_PROFILES[a][1])
+                          for a in SERVE_ARCHS])
         routers[featurize] = GreenServRouter(
             RouterConfig(lam=0.4, energy_scale_wh=0.05, featurize=featurize),
             pool, device=dev)
@@ -453,7 +643,7 @@ def router_phase(dev) -> None:
 
 
 # ---------------------------------------------------------------------------
-# 5. serving through PoolServer on two full-width engines
+# 5. serving through PoolServer on four full-width engines
 # ---------------------------------------------------------------------------
 
 
@@ -490,24 +680,28 @@ def serving_phase(dev) -> dict:
     engines = {}
     for i, arch in enumerate(SERVE_ARCHS):
         cfg = for_mode(get_config(arch, vocab_size=tok.VOCAB_SIZE,
-                                  max_seq_len=192, use_pallas=True), "serve")
-        engines[arch] = ModelEngine(arch, cfg, seed=i, max_batch=4,
-                                    max_len=192, detokenize=tok.decode,
-                                    prefill_chunk=8, device=dev)
+                                  max_seq_len=SERVE_MAX_LEN, use_pallas=True),
+                       "serve")
+        eng = engines[arch] = ModelEngine(
+            arch, cfg, seed=i, max_batch=4, max_len=SERVE_MAX_LEN,
+            detokenize=tok.decode, prefill_chunk=SERVE_CHUNK, device=dev)
         moe = (f", {cfg.n_experts} experts top-{cfg.top_k} of width "
                f"{cfg.moe_d_ff} + {cfg.n_shared_experts} shared"
                if cfg.layout == "moe" else "")
+        n_params = sum(p.numel() for p in eng.params.parameters())
         log("serve", f"{arch}: {cfg.n_layers}/{cfg.n_layers} layers (no "
             f"depth cut), d_model {cfg.d_model}, d_ff {cfg.d_ff}{moe}, "
-            f"{cfg.param_count() / 1e9:.2f} B params "
-            f"({cfg.active_param_count() / 1e9:.2f} B active) in bf16")
+            f"{n_params / 1e9:.3f} B params in bf16 "
+            f"({cfg.active_param_count() / 1e9:.2f} B active by the energy "
+            f"model), prefill chunk {eng.prefill_chunk}")
     torch.cuda.synchronize()
     t_init = time.perf_counter() - t0
     router = GreenServRouter(RouterConfig(lam=0.4, energy_scale_wh=0.05),
                              ModelPool([e.profile for e in engines.values()]),
                              device=dev)
     server = PoolServer(router, engines, tokenizer=tok.encode,
-                        accuracy_fn=exact_match_accuracy, prefill_chunk=8)
+                        accuracy_fn=exact_match_accuracy,
+                        prefill_chunk=SERVE_CHUNK)
     queries = stream_lib.make_stream(per_task=12, seed=0)
     # At max_len 192 most stream prompts are >= 191 byte tokens and stop at
     # their first token.  A decode slice follows them: each prompt is its
@@ -548,22 +742,33 @@ def serving_phase(dev) -> dict:
         server.step()
         step_s.append(time.perf_counter() - t)
     server.run_until_drained()
-    # the MoE engine must run decode-only ticks at full width: where the
-    # router sent it too few, a decode slice goes straight into it
-    moe_eng, moe_direct = engines[MOE_ARCH], []
-    if moe_eng.tick_counts["decode"] < MOE_MIN_DECODE_TICKS:
-        for q in decode_slice[:moe_eng.max_batch]:
-            moe_direct.append(Request(
-                query=dataclasses.replace(q, uid=q.uid + 10_000),
-                prompt_tokens=tok.encode(q.text),
-                max_new_tokens=q.max_new_tokens))
-        moe_eng.submit_many(moe_direct)
+
+    def direct_slice(name: str, uid_offset: int) -> list:
+        """A slice of the decode prompts straight into one engine; every
+        request must be answered."""
+        eng = engines[name]
+        reqs = [Request(query=dataclasses.replace(q, uid=q.uid + uid_offset),
+                        prompt_tokens=tok.encode(q.text),
+                        max_new_tokens=q.max_new_tokens)
+                for q in decode_slice[:eng.max_batch]]
+        eng.submit_many(reqs)
         done = []
-        while moe_eng.pending:
-            done += moe_eng.step()
-        if len(done) != len(moe_direct):
-            raise AssertionError(f"MoE decode slice: {len(done)}/"
-                                 f"{len(moe_direct)} answered")
+        while eng.pending:
+            done += eng.step()
+        if len(done) != len(reqs):
+            raise AssertionError(f"{name} direct slice: {len(done)}/"
+                                 f"{len(reqs)} answered")
+        return done
+
+    # every engine must serve a few queries at full width, and the MoE
+    # engine must run decode-only ticks: where the router sent one too
+    # few, a slice goes straight into it
+    moe_eng, direct = engines[MOE_ARCH], {}
+    for i, name in enumerate(SERVE_ARCHS):
+        if (server.dispatch_counts.get(name, 0) < MIN_ROUTED
+                or (name == MOE_ARCH and moe_eng.tick_counts["decode"]
+                    < MOE_MIN_DECODE_TICKS)):
+            direct[name] = direct_slice(name, 10_000 * (i + 1))
     torch.cuda.synchronize()
     t_serve = time.perf_counter() - t1
     launches = read_launches()
@@ -585,6 +790,12 @@ def serving_phase(dev) -> dict:
     for name in ("featurize", "linucb", "moe_gating"):
         if launches[name] <= 0:
             raise AssertionError(f"the main path never launched {name}")
+    # token-wise serving runs the one-step recurrences, never the scans
+    if launches["rwkv6"] or launches["mamba2"]:
+        raise AssertionError(f"serving launched a prefill scan: {launches}")
+    if engines[RWKV_ARCH].prefill_chunk != 1 or engines[
+            RWKV_ARCH].tick_counts["chunk"]:
+        raise AssertionError(f"{RWKV_ARCH} was not served token-wise")
     resp = list(server.responses.values())
     decoded = sum(sum(e.decode_tokens.values()) for e in engines.values())
     if decoded < 200:
@@ -599,12 +810,24 @@ def serving_phase(dev) -> dict:
         f"{t_init:.3f} s); arms "
         f"{dict(zip(router.pool.names, map(int, router.selection_counts())))}; "
         f"{sum(r.output_tokens <= 1 for r in resp)} queries stopped at "
-        f"their first token; {len(moe_direct)} decode-slice requests then "
-        f"went straight into {MOE_ARCH}")
+        f"their first token; then straight into engines: "
+        f"{ {k: len(v) for k, v in direct.items()} }")
     for name, e in engines.items():
         n_c, n_d = e.tick_counts["chunk"], e.tick_counts["decode"]
         s_c, s_d = e.tick_seconds["chunk"], e.tick_seconds["decode"]
-        prompt = sum(r.input_tokens for r in resp if r.model_name == name)
+        prompt = sum(r.input_tokens for r in resp + direct.get(name, [])
+                     if r.model_name == name)
+        if e.prefill_chunk == 1:
+            # token-wise: every prompt token is fed by a decode tick
+            log("serve", f"{name}: {n_d} decode ticks (token-wise prompts), "
+                f"{s_d / max(n_d, 1) * 1e3:.3f} ms each, "
+                f"{prompt / max(n_d, 1):.3f} prompt tokens and "
+                f"{e.decode_tokens['decode'] / max(n_d, 1):.3f} decode "
+                f"tokens per tick ({prompt} and "
+                f"{e.decode_tokens['decode']} in all; "
+                f"{(prompt + e.decode_tokens['decode']) / max(s_d, 1e-9):.1f}"
+                f" tok/s of tick time)")
+            continue
         log("serve", f"{name}: {n_c} chunk ticks, "
             f"{s_c / max(n_c, 1) * 1e3:.3f} ms each, {prompt} prompt tokens "
             f"({prompt / max(s_c, 1e-9):.1f} tok/s of chunk-tick time) and "
@@ -621,7 +844,7 @@ def serving_phase(dev) -> dict:
     weights = sum(p.numel() * p.element_size() for e in engines.values()
                   for p in e.params.parameters())
     log("serve", f"max_memory_allocated {torch.cuda.max_memory_allocated(dev)}"
-        f" bytes, of which the three engines' weights {weights} bytes; "
+        f" bytes, of which the four engines' weights {weights} bytes; "
         f"modeled energy {sum(r.energy_wh for r in resp):.6f} Wh")
     for key, what in (("busy", "kernels over the window's own wall time"),
                       ("busy_before", "kernels over the unprofiled steps "
@@ -682,7 +905,8 @@ def profile_window(server, pending, label: str, before_s) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# 6. one-shot prefill at full width through the flash kernel
+# 6. one-shot prefill at full width through the flash, gating and WKV
+#    kernels
 # ---------------------------------------------------------------------------
 
 
@@ -726,6 +950,19 @@ def first_layers(model, cfg, n: int) -> tuple:
     return view, dataclasses.replace(cfg, n_layers=n)
 
 
+def upcast(dev, model, cfg) -> tuple:
+    """(an fp32 ``DecoderLM`` holding ``model``'s weights upcast, and
+    ``cfg`` in fp32)."""
+    from repro_torch.models import lm
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
+    m32 = lm.DecoderLM(cfg32, dev)
+    with torch.no_grad():
+        for p32, p16 in zip(m32.parameters(), model.parameters()):
+            p32.copy_(p16.float())
+    return m32, cfg32
+
+
 def one_shot_and_chunked(dev, model, cfg, tokens, chunk: int) -> tuple:
     """(``api.prefill``'s last-position logits, the chunked prefill's:
     ``api.prefill_chunk`` over slabs of ``chunk`` into a fresh cache)."""
@@ -748,7 +985,7 @@ def moe_prefill_check(dev, model, cfg, batch) -> None:
     (plain gating and ``flash_prefill``) on the phase's batch, in bf16;
     then (b) again at full depth, printed, with the expert choices that
     differ between the two paths (not checked: see PREFILL_REL_TOL)."""
-    from repro_torch.models import api, lm
+    from repro_torch.models import api
 
     s, chunk, n = 512, 64, PREFILL_CHECK_DEPTH
     # capacity E/k so that no group drops a token: capacity is per dispatch
@@ -761,11 +998,7 @@ def moe_prefill_check(dev, model, cfg, batch) -> None:
     view, cut = first_layers(model, nodrop, n)
     one, chunked = one_shot_and_chunked(dev, view, cut, toks, chunk)
     gap_c = logit_gap(chunked, one)
-    cut32 = dataclasses.replace(cut, dtype="float32", param_dtype="float32")
-    m32 = lm.DecoderLM(cut32, dev)
-    with torch.no_grad():
-        for p32, p16 in zip(m32.parameters(), view.parameters()):
-            p32.copy_(p16.float())
+    m32, cut32 = upcast(dev, view, cut)
     one, chunked = one_shot_and_chunked(dev, m32, cut32, toks, chunk)
     gap_32 = logit_gap(chunked, one)
     del m32, one, chunked
@@ -805,60 +1038,237 @@ def moe_prefill_check(dev, model, cfg, batch) -> None:
         f"range (checked)")
 
 
+def one_shot_and_token_wise(dev, model, cfg, tokens) -> tuple:
+    """(``api.prefill``'s last-position logits, the last logits of feeding
+    the same tokens one at a time through ``api.serve_step`` from a fresh
+    cache)."""
+    from repro_torch.models import api
+
+    one = api.prefill(model, {"tokens": tokens}, cfg)
+    b, s = tokens.shape
+    cache = api.init_cache(cfg, b, s, dev)
+    for t in range(s):
+        out, cache = api.serve_step(model, tokens[:, t:t + 1], cache, cfg)
+    return one, out[:, 0]
+
+
+def recurrent_prefill_check(dev, arch, model, cfg, batch) -> None:
+    """A recurrent model's one-shot prefill (through the scan kernel) at its
+    first ``PREFILL_CHECK_DEPTH`` layers against (a) its token-wise
+    ``serve_step`` (the serving path, one-step recurrences) over the first
+    ``TOKENWISE_S`` tokens, in bf16 and, on the same weights upcast, in
+    fp32, and (b) its ``use_pallas=False`` path (the chunked scans, and
+    ``flash_prefill`` at the hybrid's sites) on the phase's batch, in
+    bf16 — checked.  The same at the hybrid's first attention site and at
+    full depth ((a) over ``TOKENWISE_FULL_S`` tokens, bf16) is printed,
+    not checked (see PREFILL_REL_TOL)."""
+    from repro_torch.models import api
+
+    n = PREFILL_CHECK_DEPTH
+    depths = [n] + ([cfg.attn_every] if cfg.layout == "mamba_hybrid"
+                    else []) + [cfg.n_layers]
+    gaps = {}
+    for depth in dict.fromkeys(depths):
+        full = depth == cfg.n_layers and depth > n
+        s_tw = TOKENWISE_FULL_S if full else TOKENWISE_S
+        toks = batch["tokens"][:, :s_tw]
+        view, cut = first_layers(model, cfg, depth)
+        one, tw = one_shot_and_token_wise(dev, view, cut, toks)
+        row = {"bf16": logit_gap(tw, one)}
+        if not full:
+            m32, cut32 = upcast(dev, view, cut)
+            one, tw = one_shot_and_token_wise(dev, m32, cut32, toks)
+            row["fp32"] = logit_gap(tw, one)
+            del m32
+        fast = api.prefill(view, batch, cut)
+        plain = api.prefill(view, batch,
+                            dataclasses.replace(cut, use_pallas=False))
+        row["pallas"] = logit_gap(plain, fast)
+        del one, tw, fast, plain
+        torch.cuda.empty_cache()
+        gaps[depth] = row
+        fp32 = (f", {row['fp32'][0]:.7f} in fp32 (mean {row['fp32'][1]:.7f})"
+                if "fp32" in row else "")
+        log("prefill", f"{arch}, first {depth} layers: one-shot vs token-wise "
+            f"(B={toks.shape[0]} S={s_tw}) max |diff| {row['bf16'][0]:.5f} "
+            f"of the logit range in bf16 (mean {row['bf16'][1]:.5f} of the "
+            f"mean |logit|){fp32}; use_pallas True vs False "
+            f"(B={batch['tokens'].shape[0]} S={batch['tokens'].shape[1]}) "
+            f"{row['pallas'][0]:.5f} (mean {row['pallas'][1]:.5f}) in bf16")
+    for what, rel, tol in (
+            ("one-shot vs token-wise, bf16", gaps[n]["bf16"][0],
+             PREFILL_REL_TOL),
+            ("one-shot vs token-wise, fp32", gaps[n]["fp32"][0],
+             PREFILL_FP32_REL_TOL),
+            ("use_pallas True vs False, bf16", gaps[n]["pallas"][0],
+             PREFILL_REL_TOL)):
+        if not rel <= tol:
+            raise AssertionError(f"{arch}, {n} layers: {what} {rel:.7f} of "
+                                 f"the logit range > {tol}")
+    log("prefill", f"{arch}, first {n} layers: bf16 gaps within "
+        f"{PREFILL_REL_TOL}, fp32 within {PREFILL_FP32_REL_TOL} of the logit "
+        f"range (checked)")
+
+
+def expected_launches(cfg) -> dict:
+    """Kernel launches one ``api.prefill`` of ``cfg`` must make."""
+    want = dict.fromkeys(_ops_modules(), 0)
+    if cfg.layout in ("dense", "moe"):
+        want["flash_attention"] = cfg.n_layers
+    if cfg.layout == "moe":
+        want["moe_gating"] = cfg.n_layers
+    if cfg.layout == "rwkv":
+        want["rwkv6"] = cfg.n_layers
+    if cfg.layout == "mamba_hybrid":
+        want["mamba2"] = cfg.n_layers
+        want["flash_attention"] = cfg.n_layers // cfg.attn_every
+    return want
+
+
+def drive_prefill(dev, arch, model, cfg, b: int, s: int, rng) -> tuple:
+    """``api.prefill`` at (b, s) with the counts set to 0 just before and
+    read just after (the launches must be ``expected_launches``, the
+    logits finite), then timed over two more calls.  Returns (launches,
+    the batch)."""
+    from repro_torch.data import tokenizer as tok
+    from repro_torch.models import api
+
+    batch = {"tokens": torch.from_numpy(
+        rng.integers(3, tok.VOCAB_SIZE, (b, s)).astype(np.int32)).to(dev)}
+    torch.cuda.synchronize()
+    reset_launches()
+    t = time.perf_counter()
+    logits = api.prefill(model, batch, cfg)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t
+    launches = read_launches()
+    want = expected_launches(cfg)
+    if launches != want:
+        raise AssertionError(f"prefill {arch}: launches {launches}, "
+                             f"expected {want}")
+    if (tuple(logits.shape) != (b, cfg.vocab_size)
+            or not torch.isfinite(logits).all()):
+        raise AssertionError(f"prefill {arch}: logits of shape "
+                             f"{tuple(logits.shape)}, finite "
+                             f"{bool(torch.isfinite(logits).all())}")
+    reps = 2
+    t = time.perf_counter()
+    for _ in range(reps):
+        api.prefill(model, batch, cfg)
+    torch.cuda.synchronize()
+    sec = (time.perf_counter() - t) / reps
+    log("prefill", f"{arch} B={b} S={s}: launches "
+        f"{ {k: v for k, v in launches.items() if v} }; logits "
+        f"{tuple(logits.shape)} finite; {sec * 1e3:.3f} ms per prefill "
+        f"({b * s / sec:.1f} prompt tok/s; first call "
+        f"{first_s * 1e3:.3f} ms)")
+    return launches, batch
+
+
 def prefill_phase(dev, engines) -> dict:
     """``api.prefill`` on each served model at full width (the serving
     engines' own weights and ``use_pallas=True`` configs), each driven with
     the counts set to 0 just before and read just after; then qwen2-moe's
-    one-shot logits against its chunked prefill and its plain path at the
-    first layers."""
-    from repro_torch.data import tokenizer as tok
-    from repro_torch.models import api
-
+    one-shot logits against its chunked prefill and its plain path, and
+    rwkv6's against its token-wise path and its plain path, at the first
+    layers."""
     rng = np.random.default_rng(17)
-    flash_launches, moe_case = 0, None
+    total, batches = dict.fromkeys(_ops_modules(), 0), {}
     for arch, b, s in PREFILL_CASES:
         eng = engines[arch]
-        cfg, model = eng.cfg, eng.params
-        batch = {"tokens": torch.from_numpy(
-            rng.integers(3, tok.VOCAB_SIZE, (b, s)).astype(np.int32)).to(dev)}
-        torch.cuda.synchronize()
-        reset_launches()
-        t = time.perf_counter()
-        logits = api.prefill(model, batch, cfg)
-        torch.cuda.synchronize()
-        first_s = time.perf_counter() - t
-        launches = read_launches()
-        want = {"featurize": 0, "linucb": 0, "flash_attention": cfg.n_layers,
-                "moe_gating": cfg.n_layers if cfg.layout == "moe" else 0}
-        if launches != want:
-            raise AssertionError(f"prefill {arch}: launches {launches}, "
-                                 f"expected {want}")
-        if (tuple(logits.shape) != (b, cfg.vocab_size)
-                or not torch.isfinite(logits).all()):
-            raise AssertionError(f"prefill {arch}: logits of shape "
-                                 f"{tuple(logits.shape)}, finite "
-                                 f"{bool(torch.isfinite(logits).all())}")
-        flash_launches += launches["flash_attention"]
-        reps = 2
-        t = time.perf_counter()
-        for _ in range(reps):
-            api.prefill(model, batch, cfg)
-        torch.cuda.synchronize()
-        sec = (time.perf_counter() - t) / reps
-        log("prefill", f"{arch} B={b} S={s}: launches {launches}; logits "
-            f"{tuple(logits.shape)} finite; {sec * 1e3:.3f} ms per prefill "
-            f"({b * s / sec:.1f} prompt tok/s; first call "
-            f"{first_s * 1e3:.3f} ms); windows "
-            f"{sorted(set(cfg.layer_windows(s)))}")
-        if cfg.layout == "moe":
-            moe_case = (model, cfg, batch)
-
-    moe_prefill_check(dev, *moe_case)
-    return {"flash_launches": flash_launches}
+        launches, batches[arch] = drive_prefill(dev, arch, eng.params,
+                                                eng.cfg, b, s, rng)
+        total = {k: total[k] + v for k, v in launches.items()}
+    moe_prefill_check(dev, engines[MOE_ARCH].params, engines[MOE_ARCH].cfg,
+                      batches[MOE_ARCH])
+    recurrent_prefill_check(dev, RWKV_ARCH, engines[RWKV_ARCH].params,
+                            engines[RWKV_ARCH].cfg, batches[RWKV_ARCH])
+    return total
 
 
 # ---------------------------------------------------------------------------
-# 7. bf16 vs fp32 on two full-width granite layers
+# 7. the Mamba2 hybrid at full width: one-shot prefill and an engine
+# ---------------------------------------------------------------------------
+
+
+def hybrid_phase(dev) -> dict:
+    """zamba2-7b at full width (bf16, ``use_pallas=True``, random weights
+    from a seed): its one-shot prefill through the SSD and flash kernels,
+    the recurrent checks, then a ``ModelEngine`` on the same weights
+    serving ``HYBRID_REQUESTS`` token-wise.  Returns the prefill's
+    launches."""
+    from repro_torch.configs import for_mode, get_config
+    from repro_torch.core.types import Query
+    from repro_torch.data import stream as stream_lib
+    from repro_torch.data import tokenizer as tok
+    from repro_torch.models import api
+    from repro_torch.serving.engine import ModelEngine
+    from repro_torch.serving.request import Request
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    cfg = for_mode(get_config(HYBRID_ARCH, vocab_size=tok.VOCAB_SIZE,
+                              max_seq_len=SERVE_MAX_LEN, use_pallas=True),
+                   "serve")
+    t = time.perf_counter()
+    model = api.init_params(cfg, seed=len(SERVE_ARCHS), device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    weights = sum(p.numel() * p.element_size() for p in model.parameters())
+    log("hybrid", f"{HYBRID_ARCH}: {cfg.n_layers}/{cfg.n_layers} Mamba2 "
+        f"layers (no depth cut), d_model {cfg.d_model}, d_inner "
+        f"{cfg.ssm_expand * cfg.d_model}, ssm_state {cfg.ssm_state}, shared "
+        f"attention {cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim} "
+        f"and d_ff {cfg.d_ff} at {cfg.n_layers // cfg.attn_every} sites; "
+        f"{n_params / 1e9:.3f} B params, {weights} bytes in bf16, built in "
+        f"{time.perf_counter() - t:.2f} s")
+    rng = np.random.default_rng(31)
+    launches, batch = drive_prefill(dev, HYBRID_ARCH, model, cfg,
+                                    *HYBRID_PREFILL, rng)
+    recurrent_prefill_check(dev, HYBRID_ARCH, model, cfg, batch)
+    del batch
+    torch.cuda.empty_cache()
+
+    n_req, n_prompt, n_new = HYBRID_REQUESTS
+    eng = ModelEngine(HYBRID_ARCH, cfg, max_batch=n_req,
+                      max_len=SERVE_MAX_LEN, params=model,
+                      detokenize=tok.decode, prefill_chunk=SERVE_CHUNK,
+                      device=dev)
+    reqs = [Request(query=Query(uid=q.uid, text=q.text),
+                    prompt_tokens=tok.encode(q.text)[:n_prompt],
+                    max_new_tokens=n_new)
+            for q in stream_lib.make_stream(per_task=1, seed=3)[:n_req]]
+    eng.submit_many(reqs)
+    reset_launches()
+    done, t = [], time.perf_counter()
+    while eng.pending:
+        done += eng.step()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    serve_launches = read_launches()
+    if len(done) != n_req or eng.nonfinite_ticks:
+        raise AssertionError(f"{HYBRID_ARCH} engine: {len(done)}/{n_req} "
+                             f"answered, {eng.nonfinite_ticks} ticks with "
+                             f"non-finite logits")
+    if (eng.prefill_chunk != 1 or eng.tick_counts["chunk"]
+            or serve_launches["mamba2"] or serve_launches["flash_attention"]):
+        raise AssertionError(f"{HYBRID_ARCH} engine: chunk "
+                             f"{eng.prefill_chunk}, ticks {eng.tick_counts}, "
+                             f"launches {serve_launches}: not token-wise")
+    n_d, s_d = eng.tick_counts["decode"], eng.tick_seconds["decode"]
+    prompt = sum(len(r.prompt_tokens) for r in reqs)
+    log("hybrid", f"{HYBRID_ARCH} engine: {len(done)}/{n_req} requests "
+        f"answered ({prompt} prompt tokens fed token-wise, "
+        f"{sum(r.output_tokens for r in done)} tokens generated) in "
+        f"{wall:.3f} s; {n_d} decode ticks, {s_d / max(n_d, 1) * 1e3:.3f} ms "
+        f"each, {prompt / max(n_d, 1):.3f} prompt tokens and "
+        f"{eng.decode_tokens['decode'] / max(n_d, 1):.3f} decode tokens per "
+        f"tick; finite logits; max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated(dev)} bytes")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# 8. bf16 vs fp32 on two full-width granite layers
 # ---------------------------------------------------------------------------
 
 
@@ -930,11 +1340,14 @@ def main() -> int:
     build.library()
     log("build", f"kernels built and loaded in {time.perf_counter() - t0:.2f} s")
 
+    t_start = time.perf_counter()
     t = time.perf_counter()
     feat = featurize_phase(dev)
     lin = linucb_phase(dev)
     gate = gating_phase(dev)
     flash = flash_phase(dev)
+    wkv = wkv_phase(dev)
+    ssd = ssd_phase(dev)
     log("kernels", f"phase {time.perf_counter() - t:.2f} s")
     t = time.perf_counter()
     router_phase(dev)
@@ -948,13 +1361,20 @@ def main() -> int:
     torch.cuda.empty_cache()
     log("prefill", f"phase {time.perf_counter() - t:.2f} s")
     t = time.perf_counter()
+    hybrid = hybrid_phase(dev)
+    torch.cuda.empty_cache()
+    log("hybrid", f"phase {time.perf_counter() - t:.2f} s")
+    t = time.perf_counter()
     engine_crosscheck(dev)
     log("crosscheck", f"phase {time.perf_counter() - t:.2f} s")
+    log("total", f"{time.perf_counter() - t_start:.2f} s after the build")
 
     # the serving path routes admission batches of one: the router kernels'
-    # rows are at Q = 1; its MoE decode ticks gate T = 4 rows; the flash
-    # row is granite's one-shot prefill (B = 2, S = 2048), and its launches
-    # are the prefill phase's, over the three models
+    # rows are at Q = 1; its MoE decode ticks gate T = 4 rows.  The flash
+    # row is granite's one-shot prefill (B = 2, S = 2048), the WKV row
+    # rwkv6's (B = 2, S = 2048), the SSD row zamba2's (B = 1, S = 4096);
+    # their launches are the one-shot prefills' (flash: the four served
+    # models' and zamba2's 13 sites)
     f1 = next(r for r in feat["rows"] if r["mode"] == "both" and r["q"] == 1)
     l1 = next(r for r in lin["rows"] if r["d"] == 12 and r["q"] == 1)
     g4 = next(r for r in gate["rows"] if r["t"] == 4 and not r["tied"])
@@ -976,9 +1396,17 @@ def main() -> int:
         row("moe_gating", "moe_gating.cu", "moe_gating/kernel.py:23",
             launches["moe_gating"], gate["worst"], g4),
         row("flash_attention", "flash_attention.cu",
-            "flash_attention/kernel.py:33", prefill["flash_launches"],
+            "flash_attention/kernel.py:33",
+            prefill["flash_attention"] + hybrid["flash_attention"],
             flash["worst"], fa, fa["library_ms"]),
+        row("rwkv6", "rwkv6.cu", "rwkv6/kernel.py:25", prefill["rwkv6"],
+            wkv["worst"], wkv["rows"][0]),
+        row("mamba2", "mamba2.cu", "mamba2/kernel.py:25", hybrid["mamba2"],
+            ssd["worst"], ssd["rows"][0]),
     ]
+    for k in kernels:
+        if k["launches"] <= 0:
+            raise AssertionError(f"the main path never launched {k['name']}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

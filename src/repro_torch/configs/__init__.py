@@ -1,5 +1,5 @@
-"""Architecture registry: the dense and MoE configs this package serves,
-plus reduced smoke variants.
+"""Architecture registry: the dense, MoE, RWKV6 and Mamba2-hybrid configs
+this package serves, plus reduced smoke variants.
 
 Usage:
     from repro_torch.configs import get_config, for_mode
@@ -12,10 +12,11 @@ import dataclasses
 from typing import Dict, List
 
 from repro_torch.configs import (granite_3_8b, h2o_danube_3_4b,
-                                 qwen2_moe_a2_7b)
+                                 qwen2_moe_a2_7b, rwkv6_1_6b, zamba2_7b)
 from repro_torch.models.config import ModelConfig, scaled_down
 
-_MODULES = [granite_3_8b, h2o_danube_3_4b, qwen2_moe_a2_7b]
+_MODULES = [granite_3_8b, h2o_danube_3_4b, qwen2_moe_a2_7b, rwkv6_1_6b,
+            zamba2_7b]
 
 REGISTRY: Dict[str, ModelConfig] = {m.ARCH_ID: m.CONFIG for m in _MODULES}
 ARCH_IDS: List[str] = list(REGISTRY)

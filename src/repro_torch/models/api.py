@@ -1,5 +1,6 @@
-"""Model API for the serving engine and the one-shot prefill (the dense
-and MoE subset of the JAX package's ``models/api.py``):
+"""Model API for the serving engine and the one-shot prefill (the dense,
+MoE, RWKV6 and Mamba2-hybrid subset of the JAX package's
+``models/api.py``):
 
     init_params(cfg, seed, device)          initialized model
     forward(model, batch, cfg)              full-sequence logits + MoE aux
@@ -12,6 +13,9 @@ and MoE subset of the JAX package's ``models/api.py``):
 
 ``batch`` is a dict with ``tokens`` (B, S) int32.  ``device=None`` means
 the card (``device.resolve_device``); pass ``device="cpu"`` for the CPU.
+The recurrent layouts (rwkv, mamba_hybrid) serve prompts token-wise
+through ``serve_step``; ``prefill_chunk`` and ``splice_prefix`` need the
+full-depth positional KV cache of the dense and MoE layouts.
 """
 from __future__ import annotations
 

@@ -3,9 +3,9 @@
 One ``ModelConfig`` describes dense GQA transformers (full / sliding-window /
 local:global interleaved attention), MoE, RWKV6, Mamba2 hybrids and
 encoder-decoders — the JAX package's config language, copied as plain data.
-The model code of this package serves the ``dense`` and ``moe`` layouts;
-the other layouts raise ``NotImplementedError`` where model code would
-need them.
+The model code of this package serves the ``dense``, ``moe``, ``rwkv`` and
+``mamba_hybrid`` layouts; ``encdec`` raises ``NotImplementedError`` where
+model code would need it.
 """
 from __future__ import annotations
 
@@ -75,8 +75,9 @@ class ModelConfig:
     kv_update: str = "dus"            # dus | where — decode-cache write strategy:
                                       # "where" (masked elementwise) is the only
                                       # gather-free form when S is sharded
-    use_pallas: bool = False          # kernel switch: MoE gating and one-shot
-                                      # prefill attention through kernels/
+    use_pallas: bool = False          # kernel switch: MoE gating, one-shot
+                                      # prefill attention and the WKV / SSD
+                                      # prefill scans through kernels/
 
     def __post_init__(self):
         if self.head_dim == 0:

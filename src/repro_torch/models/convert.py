@@ -1,6 +1,7 @@
 """Carry a JAX LM's parameters into this package's modules.
 
-``params_from_jax`` takes the JAX package's dense or MoE parameter tree —
+``params_from_jax`` takes the JAX package's dense, MoE, RWKV6 or
+Mamba2-hybrid parameter tree —
 the dict ``repro.models.api.init_params`` returns, with leaves as numpy
 arrays (or anything ``numpy.asarray`` accepts) and per-layer leaves stacked
 on a leading layer axis — and returns a ``DecoderLM`` holding the same
@@ -30,6 +31,38 @@ def _copy_mlp(dst, tree: dict, i: int, prefix: str) -> None:
         _copy(getattr(dst, name), tree[name][i], f"{prefix}/{name}")
 
 
+def _copy_params(dst, tree: dict, i: int, prefix: str) -> None:
+    """Every direct parameter of ``dst`` from the same-named leaf of
+    ``tree`` at layer ``i``."""
+    for name, p in dst.named_parameters(recurse=False):
+        _copy(p, tree[name][i], f"{prefix}/{name}")
+
+
+def _copy_attn_block(block, tree: dict, i: int, prefix: str) -> None:
+    """A dense or MoE block from layer ``i`` of a stacked tree."""
+    _copy(block.norm_attn, tree["norm_attn"][i], f"{prefix}/norm_attn")
+    _copy(block.norm_mlp, tree["norm_mlp"][i], f"{prefix}/norm_mlp")
+    for name in ("wq", "wk", "wv", "wo"):
+        _copy(getattr(block.attn, name), tree["attn"][name][i],
+              f"{prefix}/attn/{name}")
+    if "moe" in tree:
+        moe = tree["moe"]
+        _copy(block.moe.router, moe["router"][i], f"{prefix}/moe/router")
+        _copy_mlp(block.moe, moe, i, f"{prefix}/moe")
+        if block.moe.shared is not None:
+            _copy_mlp(block.moe.shared, moe["shared"], i,
+                      f"{prefix}/moe/shared")
+    else:
+        _copy_mlp(block.mlp, tree["mlp"], i, f"{prefix}/mlp")
+
+
+def _stacked(tree):
+    """``tree`` with a leading layer axis of 1 on every leaf."""
+    if isinstance(tree, dict):
+        return {k: _stacked(v) for k, v in tree.items()}
+    return np.asarray(tree)[None]
+
+
 @torch.no_grad()
 def params_from_jax(tree: dict, cfg: ModelConfig, device=None) -> DecoderLM:
     """The JAX tree's numbers in a ``DecoderLM`` on ``device`` (the card
@@ -41,18 +74,16 @@ def params_from_jax(tree: dict, cfg: ModelConfig, device=None) -> DecoderLM:
     _copy(model.norm_f, tree["norm_f"], "norm_f")
     layers = tree["layers"]
     for i, block in enumerate(model.layers):
-        _copy(block.norm_attn, layers["norm_attn"][i], f"layers/{i}/norm_attn")
-        _copy(block.norm_mlp, layers["norm_mlp"][i], f"layers/{i}/norm_mlp")
-        for name in ("wq", "wk", "wv", "wo"):
-            _copy(getattr(block.attn, name), layers["attn"][name][i],
-                  f"layers/{i}/attn/{name}")
-        if cfg.layout == "moe":
-            moe = layers["moe"]
-            _copy(block.moe.router, moe["router"][i], f"layers/{i}/moe/router")
-            _copy_mlp(block.moe, moe, i, f"layers/{i}/moe")
-            if block.moe.shared is not None:
-                _copy_mlp(block.moe.shared, moe["shared"], i,
-                          f"layers/{i}/moe/shared")
+        prefix = f"layers/{i}"
+        if cfg.layout == "rwkv":
+            _copy_params(block, layers, i, prefix)
+            _copy_params(block.rwkv, layers["rwkv"], i, f"{prefix}/rwkv")
+        elif cfg.layout == "mamba_hybrid":
+            _copy_params(block, layers, i, prefix)
+            _copy_params(block.mamba, layers["mamba"], i, f"{prefix}/mamba")
         else:
-            _copy_mlp(block.mlp, layers["mlp"], i, f"layers/{i}/mlp")
+            _copy_attn_block(block, layers, i, prefix)
+    if model.shared_attn is not None:
+        _copy_attn_block(model.shared_attn, _stacked(tree["shared_attn"]), 0,
+                         "shared_attn")
     return model

@@ -23,7 +23,8 @@ def param(shape: Sequence[int], dtype: torch.dtype,
 
 
 def init_leaf_(name: str, p: torch.Tensor, generator: torch.Generator) -> None:
-    """The JAX package's init rule for one leaf, in place: norms 1, embed
+    """The JAX package's init rule for one leaf, in place: norms 1, biases
+    0, Mamba's ``a_log`` log U[1, 16), RWKV's ``decay*`` U[-8, -4), embed
     N(0, 0.02), everything else N(0, 1/fan_in) with fan_in = shape[-2]
     (the last dim for 1-d leaves).  Draws are float32 from ``generator``,
     then cast to the parameter's dtype."""
@@ -32,6 +33,12 @@ def init_leaf_(name: str, p: torch.Tensor, generator: torch.Generator) -> None:
         return
     if name.startswith(("bias", "dt_bias")):
         p.zero_()
+        return
+    if name.startswith(("a_log", "decay")):
+        lo, hi = (1.0, 16.0) if name.startswith("a_log") else (-8.0, -4.0)
+        draw = torch.rand(p.shape, generator=generator, dtype=torch.float32,
+                          device=p.device) * (hi - lo) + lo
+        p.copy_(torch.log(draw) if name.startswith("a_log") else draw)
         return
     if name.startswith("embed"):
         std = 0.02

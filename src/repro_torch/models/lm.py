@@ -1,18 +1,21 @@
-"""Decoder-only LM: the dense and MoE layouts.
+"""Decoder-only LM: the dense, MoE, RWKV6 and Mamba2-hybrid layouts.
 
 Public surface:
     DecoderLM / init_lm(cfg, seed, device)  modules with initialized params
     forward_hidden(model, tokens, cfg)      final-normed hiddens + MoE aux
     forward(model, tokens, cfg)             full logits + MoE aux (ForwardOut)
-    init_cache(cfg, batch, max_len, device) full-depth per-slot KV cache
+    init_cache(cfg, batch, max_len, device) per-slot decode cache
     decode_step(model, token, cache, cfg)   one-token serve step
     prefill_chunk_step(model, toks, ...)    C-token prompt slab into the cache
+                                            (dense and MoE only)
 
 The layer stack is a Python loop over ``nn.ModuleList`` blocks (the JAX
-package scans stacked parameters).  Cache updates happen in place; the
-returned cache is the same dict with its ``length`` advanced.  Layouts
-other than ``dense`` and ``moe`` — and stacks whose window is shorter than
-the cache, which the JAX package serves from ring buffers — raise
+package scans stacked parameters).  The hybrid's shared attention block
+(``shared_attn``) is one module applied after every ``attn_every``-th
+Mamba layer, the same weights at every site.  Cache updates happen in
+place; the returned cache is the same dict with its ``length`` advanced.
+The ``encdec`` layout — and stacks whose window is shorter than the cache,
+which the JAX package serves from ring buffers — raise
 ``NotImplementedError``: they wait for later slices of the port.
 """
 from __future__ import annotations
@@ -25,6 +28,8 @@ from torch import nn
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_lib
+from repro_torch.models import rwkv as rwkv_lib
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (MLP, embed, init_module_, mlp, param,
                                        rms_norm, unembed)
@@ -33,10 +38,11 @@ Cache = Dict[str, torch.Tensor]
 
 
 def check_layout(cfg: ModelConfig) -> None:
-    if cfg.layout not in ("dense", "moe"):
+    if cfg.layout not in ("dense", "moe", "rwkv", "mamba_hybrid"):
         raise NotImplementedError(
             f"{cfg.name}: layout {cfg.layout!r} waits for a later "
-            f"model-families slice of the port; dense and moe are served")
+            f"model-families slice of the port; dense, moe, rwkv and "
+            f"mamba_hybrid are served")
 
 
 class DenseBlock(nn.Module):
@@ -62,10 +68,15 @@ class MoEBlock(nn.Module):
         self.moe = moe_lib.MoE(cfg, device)
 
 
+_BLOCKS = {"dense": DenseBlock, "moe": MoEBlock,
+           "rwkv": rwkv_lib.RWKVBlock, "mamba_hybrid": ssm_lib.MambaBlock}
+
+
 class DecoderLM(nn.Module):
-    """Token embedding, ``n_layers`` dense or MoE blocks, final norm, LM
-    head — parameter names and layouts as in the JAX tree (``tok/embed``,
-    ``tok/unembed``, ``norm_f``, ``layers/...``)."""
+    """Token embedding, ``n_layers`` blocks of the layout, final norm, LM
+    head, and for the hybrid the one ``shared_attn`` dense block —
+    parameter names and layouts as in the JAX tree (``tok/embed``,
+    ``tok/unembed``, ``norm_f``, ``layers/...``, ``shared_attn/...``)."""
 
     def __init__(self, cfg: ModelConfig, device: torch.device):
         super().__init__()
@@ -75,9 +86,11 @@ class DecoderLM(nn.Module):
         self.unembed = (None if cfg.tie_embeddings
                         else param((cfg.d_model, cfg.vocab_size), dt, device))
         self.norm_f = param((cfg.d_model,), dt, device)
-        block = MoEBlock if cfg.layout == "moe" else DenseBlock
+        block = _BLOCKS[cfg.layout]
         self.layers = nn.ModuleList(block(cfg, device)
                                     for _ in range(cfg.n_layers))
+        self.shared_attn = (DenseBlock(cfg, device)
+                            if cfg.layout == "mamba_hybrid" else None)
 
     def head(self, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
         """LM head on final-normed hiddens."""
@@ -118,25 +131,52 @@ class ForwardOut(NamedTuple):
     aux_loss: torch.Tensor
 
 
+def _attn_block(layer: nn.Module, x: torch.Tensor, positions: torch.Tensor,
+                window: int, cfg: ModelConfig
+                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """One dense or MoE block over a whole sequence: (x, MoE aux or
+    None)."""
+    h = rms_norm(x, layer.norm_attn, cfg.norm_eps)
+    x = x + attn.attention_prefill(layer.attn, h, positions, window, cfg)
+    m, layer_aux = _ffn(layer, rms_norm(x, layer.norm_mlp, cfg.norm_eps), cfg)
+    return x + m, layer_aux
+
+
 @torch.no_grad()
 def forward_hidden(model: DecoderLM, tokens: torch.Tensor, cfg: ModelConfig
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens: (B, S).  Returns (final-normed hidden states (B, S, d), MoE
-    aux loss summed over layers — 0 for dense).  Every layer attends
-    through ``attention.attention_prefill`` with its own window."""
+    aux loss summed over layers — 0 for the other layouts).  Dense and
+    MoE layers attend through ``attention.attention_prefill`` with their
+    own window; RWKV layers start from a zero state each; the hybrid runs
+    its shared attention block, window S, after every ``attn_every``-th
+    Mamba layer."""
     x = embed(model.embed, tokens, cfg.torch_dtype())
     b, s, _ = x.shape
     positions = torch.arange(s, dtype=torch.int32,
                              device=x.device).expand(b, s)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for layer, window in zip(model.layers, cfg.layer_windows(s)):
-        h = rms_norm(x, layer.norm_attn, cfg.norm_eps)
-        x = x + attn.attention_prefill(layer.attn, h, positions, window, cfg)
-        m, layer_aux = _ffn(layer, rms_norm(x, layer.norm_mlp, cfg.norm_eps),
-                            cfg)
-        x = x + m
-        if layer_aux is not None:
-            aux = aux + layer_aux
+    if cfg.layout in ("dense", "moe"):
+        for layer, window in zip(model.layers, cfg.layer_windows(s)):
+            x, layer_aux = _attn_block(layer, x, positions, window, cfg)
+            if layer_aux is not None:
+                aux = aux + layer_aux
+    elif cfg.layout == "rwkv":
+        for layer in model.layers:
+            st = rwkv_lib.init_rwkv_state(cfg, b, x.device)
+            h, st = rwkv_lib.rwkv_time_mix(
+                layer.rwkv, rms_norm(x, layer.ln1, cfg.norm_eps), st, cfg)
+            x = x + h
+            h, _ = rwkv_lib.rwkv_channel_mix(
+                layer.rwkv, rms_norm(x, layer.ln2, cfg.norm_eps), st, cfg)
+            x = x + h
+    else:                                       # mamba_hybrid
+        for idx, layer in enumerate(model.layers):
+            h, _ = ssm_lib.mamba_prefill(
+                layer.mamba, rms_norm(x, layer.norm, cfg.norm_eps), cfg)
+            x = x + h
+            if (idx + 1) % cfg.attn_every == 0:
+                x, _ = _attn_block(model.shared_attn, x, positions, s, cfg)
     return rms_norm(x, model.norm_f, cfg.norm_eps), aux
 
 
@@ -154,20 +194,45 @@ def forward(model: DecoderLM, tokens: torch.Tensor,
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device=None) -> Cache:
-    """Full-depth per-slot KV cache on ``device`` (the card unless the
-    caller names another): k/v (L, B, max_len, Hk, hd) in the compute
-    dtype, length (B,) int32."""
+    """Per-slot decode cache on ``device`` (the card unless the caller
+    names another), as the JAX package's ``cache_shapes``; every layout
+    has ``length`` (B,) int32.
+
+    dense / moe: full-depth k/v (L, B, max_len, Hk, hd) in the compute
+    dtype.  rwkv: the recurrent state, shift_tm/shift_cm (L, B, d) and wkv
+    (L, B, H, K, K), fp32.  mamba_hybrid: conv (L, B, conv-1, d_inner+2n)
+    in the compute dtype, ssm (L, B, H, 64, n) fp32, and the shared
+    block's attn_k/attn_v (n_sites, B, max_len, Hk, hd), one per site."""
     check_layout(cfg)
-    if cfg.attn_pattern in ("swa", "local_global") and max_len > cfg.window:
+    if (cfg.layout in ("dense", "moe")
+            and cfg.attn_pattern in ("swa", "local_global")
+            and max_len > cfg.window):
         raise NotImplementedError(
             f"{cfg.name}: max_len {max_len} > window {cfg.window} needs the "
             f"ring-buffer cache, which waits for a later slice of the port")
     device = resolve_device(device)
-    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
     dt = cfg.torch_dtype()
-    return {"k": torch.zeros(shape, dtype=dt, device=device),
-            "v": torch.zeros(shape, dtype=dt, device=device),
-            "length": torch.zeros((batch,), dtype=torch.int32, device=device)}
+    zeros = lambda shape, dtype: torch.zeros(shape, dtype=dtype, device=device)
+    L = cfg.n_layers
+    cache = {"length": zeros((batch,), torch.int32)}
+    if cfg.layout == "rwkv":
+        h, kd = rwkv_lib.rwkv_dims(cfg)
+        cache.update(shift_tm=zeros((L, batch, cfg.d_model), torch.float32),
+                     shift_cm=zeros((L, batch, cfg.d_model), torch.float32),
+                     wkv=zeros((L, batch, h, kd, kd), torch.float32))
+    elif cfg.layout == "mamba_hybrid":
+        d_inner, h, n = ssm_lib.mamba_dims(cfg)
+        kv = (L // cfg.attn_every, batch, max_len, cfg.n_kv_heads,
+              cfg.head_dim)
+        cache.update(
+            conv=zeros((L, batch, cfg.ssm_conv - 1, d_inner + 2 * n), dt),
+            ssm=zeros((L, batch, h, ssm_lib.MAMBA_HEAD_DIM, n),
+                      torch.float32),
+            attn_k=zeros(kv, dt), attn_v=zeros(kv, dt))
+    else:
+        shape = (L, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+        cache.update(k=zeros(shape, dt), v=zeros(shape, dt))
+    return cache
 
 
 # ---------------------------------------------------------------------------
@@ -191,8 +256,13 @@ def prefill_chunk_step(model: DecoderLM, tokens: torch.Tensor, cache: Cache,
     n_active).  With C == 1 and n_active == 1 this computes exactly what
     ``decode_step`` computes.  MoE padding rows flow through dispatch but
     cannot evict real tokens: ``active`` is a prefix of each row and the
-    capacity sort is stable (``moe._dispatch``).
+    capacity sort is stable (``moe._dispatch``).  Recurrent layouts have
+    no positional cache to take a slab at an offset, and raise.
     """
+    if cfg.layout not in ("dense", "moe") or "k" not in cache:
+        raise ValueError(
+            f"chunked prefill unsupported for layout={cfg.layout!r} / cache "
+            f"keys {sorted(cache)}; use the one-token decode path")
     dtype = cfg.torch_dtype()
     c = tokens.shape[1]
     lengths = cache["length"]
@@ -215,21 +285,57 @@ def prefill_chunk_step(model: DecoderLM, tokens: torch.Tensor, cache: Cache,
 # ---------------------------------------------------------------------------
 
 
+def _attn_decode(layer: nn.Module, x: torch.Tensor, k_c: torch.Tensor,
+                 v_c: torch.Tensor, window: int, length: torch.Tensor,
+                 cfg: ModelConfig) -> torch.Tensor:
+    h = rms_norm(x, layer.norm_attn, cfg.norm_eps)
+    x = x + attn.attention_decode(layer.attn, h, k_c, v_c, window, length,
+                                  cfg)
+    return x + _ffn(layer, rms_norm(x, layer.norm_mlp, cfg.norm_eps), cfg)[0]
+
+
 @torch.no_grad()
 def decode_step(model: DecoderLM, token: torch.Tensor, cache: Cache,
                 cfg: ModelConfig) -> Tuple[torch.Tensor, Cache]:
     """token: (B, 1) int32.  Returns (logits (B, 1, V), the cache with
-    every slot's length advanced by one).  MoE layers route the B tokens
-    as one dispatch group."""
+    every slot's length advanced by one and its state written in place).
+    MoE layers route the B tokens as one dispatch group.  The hybrid runs
+    its Mamba layers one step each and the shared block's decode at every
+    site, against that site's own KV cache."""
     dtype = cfg.torch_dtype()
     x = embed(model.embed, token, dtype)
     length = cache["length"]
-    windows = cfg.layer_windows(cache["k"].shape[2])
-    for layer, k_c, v_c, window in zip(model.layers, cache["k"], cache["v"],
-                                       windows):
-        h = rms_norm(x, layer.norm_attn, cfg.norm_eps)
-        x = x + attn.attention_decode(layer.attn, h, k_c, v_c, window,
-                                      length, cfg)
-        x = x + _ffn(layer, rms_norm(x, layer.norm_mlp, cfg.norm_eps), cfg)[0]
+    if cfg.layout in ("dense", "moe"):
+        windows = cfg.layer_windows(cache["k"].shape[2])
+        for layer, k_c, v_c, window in zip(model.layers, cache["k"],
+                                           cache["v"], windows):
+            x = _attn_decode(layer, x, k_c, v_c, window, length, cfg)
+    elif cfg.layout == "rwkv":
+        for l, layer in enumerate(model.layers):
+            st = rwkv_lib.RwkvLayerState(cache["shift_tm"][l],
+                                         cache["shift_cm"][l],
+                                         cache["wkv"][l])
+            h, st = rwkv_lib.rwkv_time_mix(
+                layer.rwkv, rms_norm(x, layer.ln1, cfg.norm_eps), st, cfg,
+                decode=True)
+            x = x + h
+            h, st = rwkv_lib.rwkv_channel_mix(
+                layer.rwkv, rms_norm(x, layer.ln2, cfg.norm_eps), st, cfg)
+            x = x + h
+            for name, new in zip(st._fields, st):
+                cache[name][l].copy_(new)
+    else:                                       # mamba_hybrid
+        s_max = cache["attn_k"].shape[2]
+        for idx, layer in enumerate(model.layers):
+            h, (conv_s, ssm_s) = ssm_lib.mamba_decode(
+                layer.mamba, rms_norm(x, layer.norm, cfg.norm_eps),
+                cache["conv"][idx], cache["ssm"][idx], cfg)
+            x = x + h
+            cache["conv"][idx].copy_(conv_s)
+            cache["ssm"][idx].copy_(ssm_s)
+            if (idx + 1) % cfg.attn_every == 0:
+                site = (idx + 1) // cfg.attn_every - 1
+                x = _attn_decode(model.shared_attn, x, cache["attn_k"][site],
+                                 cache["attn_v"][site], s_max, length, cfg)
     cache["length"] = length + 1
     return model.logits(x, cfg), cache

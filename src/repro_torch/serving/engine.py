@@ -13,6 +13,19 @@ Engines report per-query energy (Wh) via the analytic H100 model
 (core.energy) — the zeus stand-in — and time-resolved per-step joules,
 split by phase (prefill is compute-bound, decode bandwidth-bound).
 
+Recurrent layouts (rwkv, mamba_hybrid) have no positional KV cache to
+take a slab at an offset, so their prompts run token-wise through
+``serve_step`` ("decode" ticks: ``set_prefill_chunk`` clamps the chunk to
+1).  Their cache holds per-slot state (``shift_tm``/``shift_cm``/``wkv``,
+or ``conv``/``ssm`` plus the shared block's per-site KV) beside
+``length``; the engine's own bookkeeping (``_admit``, ``_should_finish``,
+``_meter_step``, ``_finish``) reads only ``length`` and request progress,
+so it runs on either kind of cache.  As in the JAX package, admission
+resets only ``length``: a recurrent slot keeps the previous request's
+state, and idle slots feed token 0 through ``serve_step`` and drift.
+That is a fault of the reference, reproduced on purpose so both packages
+generate the same tokens (ROADMAP C).
+
 This slice serves unified engines: prefix-KV splice/capture and the
 disaggregated prefill/decode roles wait for the port's cache and
 disaggregation slices, and the paper-scale ``SimEngine`` for its
@@ -203,7 +216,8 @@ class ModelEngine(BaseEngine):
                     continue
                 req.slot = i
                 self.slots[i] = req
-                # reset the slot's cache length so it starts fresh
+                # reset the slot's cache length so it starts fresh (only
+                # the length, as the reference: recurrent state carries over)
                 self.cache["length"][i] = 0
                 req.state = RequestState.PREFILL
                 req.start_s = time.monotonic()

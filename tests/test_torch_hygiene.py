@@ -77,7 +77,8 @@ def test_chip_smoke_refuses_alone_in_a_directory(tmp_path):
     assert '"ok"' not in out.stdout
 
 
-KERNELS = ("featurize", "linucb", "moe_gating", "flash_attention")
+KERNELS = ("featurize", "linucb", "moe_gating", "flash_attention", "rwkv6",
+           "mamba2")
 
 
 def test_every_cuda_source_is_built_and_names_its_tpu_kernel():

@@ -8,16 +8,21 @@ Phases, in order; any failure raises and the script exits non-zero:
   1. the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from ``src/repro_torch/kernels/csrc``;
   3. kernels: the wrappers of featurize, LinUCB, MoE gating, flash
-     attention, the RWKV6 WKV scan and the Mamba2 SSD scan against their
-     plain PyTorch versions on the card (featurize 1e-5, LinUCB 1e-4,
-     gating indices exact and weights 1e-6, flash one bf16 unit in bf16
-     and 2e-5 in fp32, causal danube with its window included and
-     zamba2's hd 112; WKV at B=2 S=2048 H=32 and SSD at B=1 S=4096 H=112
-     N=64 in the models' dtypes with y at one bf16 unit, the same shapes
-     in fp32 with a nonzero initial state at 2e-4 (WKV) and 3e-4 (SSD),
-     and a ragged S=100; final states fp32 at 2e-4 / 3e-4) at the main
-     paths' shapes, timed with CUDA events beside their bounds and, for
-     flash, PyTorch's own attention call;
+     attention, the RWKV6 WKV scan, the Mamba2 SSD scan and decode
+     attention against their plain PyTorch versions on the card
+     (featurize 1e-5, LinUCB 1e-4, gating indices exact and weights 1e-6,
+     flash one bf16 unit in bf16 and 2e-5 in fp32, causal danube with its
+     window included, zamba2's hd 112 and gemma3-12b's hd 256 at S=8192
+     with window 1024 and full; WKV at B=2 S=2048 H=32 and SSD at B=1
+     S=4096 H=112 N=64 in the models' dtypes with y at one bf16 unit, the
+     same shapes in fp32 with a nonzero initial state at 2e-4 (WKV) and
+     3e-4 (SSD), and a ragged S=100; final states fp32 at 2e-4 / 3e-4;
+     decode attention at gemma3's global layers B=4 S=32768 16/8 hd 256,
+     granite's and zamba2's shapes, a short window, cache_len 5 and a
+     ragged S, one bf16 unit in bf16 and 2e-5 in fp32) at the main paths'
+     shapes,
+     timed with CUDA events beside their bounds and, for flash and decode
+     attention, PyTorch's own attention call;
   4. router: one 64-query stream through twin routers on the card, device
      featurize vs host featurize — arms, labels, clusters and bins must be
      identical;
@@ -47,7 +52,24 @@ Phases, in order; any failure raises and the script exits non-zero:
      the same one-shot vs token-wise and ``use_pallas`` checks as rwkv6,
      then a ``ModelEngine`` on the same weights serving 4 requests
      token-wise (Mamba decode and the shared block's decode at 13 sites);
-  8. engine cross-check: two full-width granite layers, bf16 against fp32
+  8. gemma3-12b at full width (48 layers, 5:1 local:global, window 1024,
+     hd 256, bf16, ``use_pallas=True``), after zamba2 is freed:
+     ``api.prefill`` at B=1 S=8192 through the flash kernel at every
+     layer; lockstep decode — ``api.init_cache(cfg, 4, 32768)`` (rings for
+     the 40 local layers, full-depth caches for the 8 global ones) filled
+     with seeded random values, ``cache["length"]`` a 0-d 32704, 32
+     ``serve_step``s through the decode-attention kernel at every global
+     layer (8 launches a step); at the first 6 layers (5 rings and a
+     global layer) ``use_pallas`` True vs False on the filled caches, and
+     in one-layer views of that group (its first ring layer, its global
+     layer) a 1536-token lockstep feed into a 2048-deep cache (the ring
+     wraps; the kernel runs every step) against one-shot ``api.forward``,
+     each in bf16 (0.05 of the logit range) and fp32 (1e-4), the feed's
+     largest per-position gap at 0.1 (bf16) and 1e-3 (fp32); the
+     full-depth gaps printed; then a ``ModelEngine`` at ``max_len`` 2048
+     (rings) serving
+     4 requests token-wise;
+  9. engine cross-check: two full-width granite layers, bf16 against fp32
      on the same weights.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
@@ -126,6 +148,7 @@ BF16_FLOPS = 989e12            # H100 SXM bf16 tensor cores, dense
 MOE_ARCH = "qwen2-moe-a2.7b"
 RWKV_ARCH = "rwkv6-1.6b"
 HYBRID_ARCH = "zamba2-7b"
+GEMMA_ARCH = "gemma3-12b"
 # the serving launcher's default pool, in its order, and danube: arms that
 # are untried tie, ties go to the lowest index, and an arm late in the
 # pool may get no query from an 80-query stream (rwkv6 got none as the
@@ -165,7 +188,57 @@ FLASH_CASES = (
     ("h2o-danube-3-4b fp32", 1, 6144, 6144, 32, 8, 120, 4096, True,
      torch.float32),
     ("non-causal", 1, 512, 768, 8, 2, 120, 640, False, torch.float32),
+    # gemma3-12b's prefill: hd 256 (the wide tile), local and global layers
+    (GEMMA_ARCH + " local", 1, 8192, 8192, 16, 8, 256, 1024, True,
+     torch.bfloat16),
+    (GEMMA_ARCH + " global", 1, 8192, 8192, 16, 8, 256, 8192, True,
+     torch.bfloat16),
+    (GEMMA_ARCH + " local fp32", 1, 8192, 8192, 16, 8, 256, 1024, True,
+     torch.float32),
+    (GEMMA_ARCH + " global fp32", 1, 8192, 8192, 16, 8, 256, 8192, True,
+     torch.float32),
 )
+# decode attention: gemma3's global layers in lockstep decode (the main
+# path's shape: B=4 at cache_len 32705 of 32768, full window), the same in
+# fp32, granite's and zamba2's shapes, a window shorter than cache_len,
+# cache_len 5 (all but the first split see nothing) and a ragged S
+# (name, b, s, hq, hk, hd, cache_len, window, dtype)
+DECODE_CASES = (
+    (GEMMA_ARCH, 4, 32768, 16, 8, 256, 32705, 32768, torch.bfloat16),
+    (GEMMA_ARCH + " fp32", 4, 32768, 16, 8, 256, 32705, 32768,
+     torch.float32),
+    ("granite-3-8b", 4, 4096, 32, 8, 128, 4001, 4096, torch.bfloat16),
+    (HYBRID_ARCH, 1, 4096, 32, 32, 112, 4001, 4096, torch.bfloat16),
+    ("window 1024", 4, 32768, 16, 8, 256, 32705, 1024, torch.float32),
+    ("cache_len 5", 4, 32768, 16, 8, 256, 5, 32768, torch.float32),
+    ("ragged S", 2, 5000, 8, 2, 128, 4999, 5000, torch.float32),
+)
+# fp32 cases at tests/test_kernels.py's 2e-5 (atol and rtol); bf16 cases at
+# one bf16 unit, as flash (FLASH_BF16_REL): test_kernels.py's 3e-2 is about
+# three typical outputs here (|out| ~ 0.01 over 32k random keys), so a
+# kernel that wrote zeros would pass it
+DECODE_FP32_TOL = 2e-5
+# gemma3-12b's phase: one-shot prefill (batch, seq); lockstep decode at
+# (batch, cache depth, starting length, steps); the first-group checks'
+# depth, feed length and cache depth; the full-depth feed's length; the
+# engine (requests, prompt, new tokens) at max_len 2048
+GEMMA_PREFILL = (1, 8192)
+GEMMA_DECODE = (4, 32768, 32704, 32)
+GEMMA_CHECK_DEPTH = 6
+GEMMA_FEED = (1536, 2048)
+GEMMA_FULL_FEED = 64
+# the one-layer feeds' largest per-position logit gap, as a share of the
+# logit range: one layer at full width with random weights amplifies
+# rounding at single positions (r3/r4 of PR 14 read 0.048 / 0.041 in bf16
+# and 2.2e-4 / 2.0e-4 in fp32, the medians past the window 0.0045 and
+# 1.2e-5), so the maxima are held at about twice (bf16) and five times
+# (fp32) those readings: a fault at a few positions (one ring slot after
+# the wrap, one split boundary of the decode kernel) fails it even where
+# the median does not move
+GEMMA_FEED_MAX_TOL = {"bf16": 0.1, "fp32": 1e-3}
+GEMMA_PROFILE_STEPS = 4         # lockstep steps profiled after the main run
+GEMMA_REQUESTS = (4, 32, 16)
+GEMMA_ENGINE_MAX_LEN = 2048
 GATING_T = (4, 32, 4096)       # decode tick, chunk tick (4 x 8), a prefill
 # WKV shapes: rwkv6's prefill (B, S, H), its dtypes (r, k, v bf16; logw, u
 # and the zero initial state fp32, as forward_hidden passes them), then
@@ -222,10 +295,12 @@ def _ops_modules() -> dict:
     from repro_torch.kernels.linucb import ops as linucb_ops
     from repro_torch.kernels.mamba2 import ops as mamba2_ops
     from repro_torch.kernels.moe_gating import ops as gating_ops
+    from repro_torch.kernels.decode_attention import ops as decode_ops
     from repro_torch.kernels.rwkv6 import ops as rwkv6_ops
     return {"featurize": featurize_ops, "linucb": linucb_ops,
             "moe_gating": gating_ops, "flash_attention": flash_ops,
-            "rwkv6": rwkv6_ops, "mamba2": mamba2_ops}
+            "rwkv6": rwkv6_ops, "mamba2": mamba2_ops,
+            "decode_attention": decode_ops}
 
 
 def reset_launches() -> None:
@@ -586,6 +661,80 @@ def ssd_phase(dev) -> dict:
     return {"rows": rows, "worst": worst}
 
 
+def decode_phase(dev) -> dict:
+    from repro_torch.kernels.decode_attention import ops
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+
+    rng = np.random.default_rng(37)
+    rows, worst = [], 0.0
+    for name, b, s, hq, hk, hd, clen, win, dt in DECODE_CASES:
+        q, k, v = (torch.from_numpy(rng.standard_normal(shape, np.float32))
+                   .to(dev, dt) for shape in ((b, 1, hq, hd), (b, s, hk, hd),
+                                              (b, s, hk, hd)))
+        # the lengths live on the device, as in lockstep decode
+        cl = torch.full((), clen, dtype=torch.int32, device=dev)
+        w = torch.full((), win, dtype=torch.int32, device=dev)
+        out = ops.decode_attention(q, k, v, w, cl)
+        ref = decode_attention_ref(q, k, v, w, cl).float()
+        torch.cuda.synchronize()
+        diff = (out.float() - ref).abs()
+        err = float(diff.max())
+        rms = float(ref.pow(2).mean().sqrt())
+        if dt == torch.bfloat16:
+            limit, what = FLASH_BF16_REL * (ref.abs() + rms), \
+                f"{FLASH_BF16_REL} of |ref| + RMS {rms:.4g}"
+        else:
+            limit, what = DECODE_FP32_TOL * (1 + ref.abs()), \
+                f"{DECODE_FP32_TOL} (atol and rtol)"
+        ratio = float((diff / limit).max())
+        if not (torch.isfinite(out).all() and ratio <= 1):
+            raise AssertionError(f"decode_attention {name}: max abs err "
+                                 f"{err}, {ratio:.3g} of the limit {what}")
+        worst = max(worst, err)
+        # PyTorch's own attention call on the same inputs and mask, as the
+        # yardstick: (B, H, S, hd) layout, GQA by enable_gqa
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        pos = torch.arange(s, device=dev)
+        visible = ((pos < clen) & (pos >= clen - win))[None]     # (L=1, S)
+
+        def library():
+            return torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=visible, enable_gqa=True)
+
+        lib_err = float((library().transpose(1, 2).float() - ref).abs().max())
+        if not lib_err <= 3e-2 * max(1.0, float(ref.abs().max())):
+            raise AssertionError(f"decode_attention {name}: the library call "
+                                 f"differs from the plain version by "
+                                 f"{lib_err}")
+        del ref, diff, limit
+        ms = cuda_ms(lambda: ops.decode_attention(q, k, v, w, cl))
+        plain_ms = cuda_ms(lambda: decode_attention_ref(q, k, v, w, cl))
+        library_ms = cuda_ms(library)
+        # what this data needs: q read and the output written once, and of
+        # the caches only the visible positions, k and v, each read once;
+        # a multiply-add per (head, visible position, element) for q.k and
+        # again for p.v
+        n_vis = max(0, min(clen, s) - max(clen - win, 0))
+        n_bytes = (2 * q.numel() + 2 * b * n_vis * hk * hd) * q.element_size()
+        n_ops = 4 * hd * n_vis * hq * b
+        b_ms, b_by = bound(n_bytes, n_ops,
+                           BF16_FLOPS if dt == torch.bfloat16 else FP32_FLOPS)
+        rows.append(dict(name=name, shape=(b, s, hq, hk, hd, clen, win,
+                                           str(dt)),
+                         err=err, ms=ms, plain_ms=plain_ms,
+                         library_ms=library_ms, bound_ms=b_ms, bound_by=b_by))
+        log("kernels", f"decode_attention {name} B={b} S={s} Hq={hq} Hk={hk} "
+            f"hd={hd} cache_len={clen} window={win} {dt}: {n_vis} visible "
+            f"positions, err {err:.3g} (output RMS {rms:.4g}; {ratio:.3f} of "
+            f"the limit; library "
+            f"{lib_err:.3g}), kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, "
+            f"library {library_ms:.6f} ms, bound {b_ms:.6f} ms ({b_by}), "
+            f"{n_bytes / ms / 1e6:.1f} GB/s")
+        del q, k, v, qt, kt, vt, out
+        torch.cuda.empty_cache()
+    return {"rows": rows, "worst": worst}
+
+
 # ---------------------------------------------------------------------------
 # 4. device vs host routing
 # ---------------------------------------------------------------------------
@@ -863,7 +1012,6 @@ def profile_window(server, pending, label: str, before_s) -> dict:
     is the kernels' summed device time over the same steps' wall time; the
     profiler lengthens the host side, so the unprofiled steps just before
     (``before_s``) are printed beside it for scale."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     ticks0 = {n: dict(e.tick_counts) for n, e in server.engines.items()}
@@ -878,13 +1026,7 @@ def profile_window(server, pending, label: str, before_s) -> dict:
             server.step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3 / PROFILE_STEPS
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
-    dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3 \
-        / PROFILE_STEPS
-    if dev_ms <= 0:
-        raise AssertionError(f"{label} window: the profiler recorded no "
-                             f"kernel time on the card")
+    dev_ms, top = kernel_times(prof, PROFILE_STEPS, f"{label} window")
     before_ms = sum(before_s) / len(before_s) * 1e3
     ticks = {n: {k: v - ticks0[n][k] for k, v in e.tick_counts.items()}
              for n, e in server.engines.items()}
@@ -894,12 +1036,8 @@ def profile_window(server, pending, label: str, before_s) -> dict:
         f"the {len(before_s)} unprofiled steps before took {before_ms:.3f} "
         f"ms each ({dev_ms / before_ms:.4f}); engine ticks in the window "
         f"{ticks}")
-    top = sorted(kernels, key=lambda e: e.self_device_time_total,
-                 reverse=True)[:6]
-    for e in top:
-        log("profile", f"  {e.self_device_time_total / 1e3 / PROFILE_STEPS:8.3f}"
-            f" ms/step  {e.count / PROFILE_STEPS:7.1f} calls/step  "
-            f"{e.key[:70]}")
+    for line in top:
+        log("profile", line)
     return {"label": label, "dev_ms": dev_ms, "wall_ms": wall_ms,
             "busy": dev_ms / wall_ms, "busy_before": dev_ms / before_ms}
 
@@ -941,13 +1079,33 @@ def logit_gap(got: torch.Tensor, want: torch.Tensor) -> tuple:
             float((got - want).abs().mean() / want.abs().mean()))
 
 
-def first_layers(model, cfg, n: int) -> tuple:
-    """(a view of ``model`` holding only its first ``n`` layers, weights
-    shared, and ``cfg`` cut to ``n`` layers)."""
+def kernel_times(prof, n: int, what: str) -> tuple:
+    """From a torch.profiler session with device activity over ``n``
+    steps: (kernel ms per step on the card, log lines of the six longest
+    kernels); raises where the profiler saw no kernel time."""
+    from torch.autograd import DeviceType
+
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / n
+    if dev_ms <= 0:
+        raise AssertionError(f"{what}: the profiler recorded no kernel time "
+                             f"on the card")
+    top = sorted(kernels, key=lambda e: e.self_device_time_total,
+                 reverse=True)[:6]
+    return dev_ms, [f"  {e.self_device_time_total / 1e3 / n:8.3f} ms/step  "
+                    f"{e.count / n:7.1f} calls/step  {e.key[:70]}"
+                    for e in top]
+
+
+def layers_view(model, cfg, indices, **changes) -> tuple:
+    """(a view of ``model`` holding only its layers at ``indices``, weights
+    shared, and ``cfg`` cut to them, with ``changes``)."""
     view = copy.copy(model)
     view._modules = dict(model._modules)
-    view.layers = torch.nn.ModuleList(list(model.layers)[:n])
-    return view, dataclasses.replace(cfg, n_layers=n)
+    view.layers = torch.nn.ModuleList(model.layers[i] for i in indices)
+    return view, dataclasses.replace(cfg, n_layers=len(view.layers),
+                                     **changes)
 
 
 def upcast(dev, model, cfg) -> tuple:
@@ -995,7 +1153,7 @@ def moe_prefill_check(dev, model, cfg, batch) -> None:
     nodrop = dataclasses.replace(cfg,
                                  capacity_factor=cfg.n_experts / cfg.top_k)
     toks = batch["tokens"][:1, :s]
-    view, cut = first_layers(model, nodrop, n)
+    view, cut = layers_view(model, nodrop, range(n))
     one, chunked = one_shot_and_chunked(dev, view, cut, toks, chunk)
     gap_c = logit_gap(chunked, one)
     m32, cut32 = upcast(dev, view, cut)
@@ -1005,7 +1163,7 @@ def moe_prefill_check(dev, model, cfg, batch) -> None:
     torch.cuda.empty_cache()
     gaps_p = {}
     for depth in (n, cfg.n_layers):
-        view, cut = first_layers(model, cfg, depth)
+        view, cut = layers_view(model, cfg, range(depth))
         with recorded_gates() as kernel_idx:
             fast = api.prefill(view, batch, cut)
         with recorded_gates() as plain_idx:
@@ -1072,7 +1230,7 @@ def recurrent_prefill_check(dev, arch, model, cfg, batch) -> None:
         full = depth == cfg.n_layers and depth > n
         s_tw = TOKENWISE_FULL_S if full else TOKENWISE_S
         toks = batch["tokens"][:, :s_tw]
-        view, cut = first_layers(model, cfg, depth)
+        view, cut = layers_view(model, cfg, range(depth))
         one, tw = one_shot_and_token_wise(dev, view, cut, toks)
         row = {"bf16": logit_gap(tw, one)}
         if not full:
@@ -1250,7 +1408,8 @@ def hybrid_phase(dev) -> dict:
                              f"answered, {eng.nonfinite_ticks} ticks with "
                              f"non-finite logits")
     if (eng.prefill_chunk != 1 or eng.tick_counts["chunk"]
-            or serve_launches["mamba2"] or serve_launches["flash_attention"]):
+            or serve_launches["mamba2"] or serve_launches["flash_attention"]
+            or serve_launches["decode_attention"]):
         raise AssertionError(f"{HYBRID_ARCH} engine: chunk "
                              f"{eng.prefill_chunk}, ticks {eng.tick_counts}, "
                              f"launches {serve_launches}: not token-wise")
@@ -1268,7 +1427,372 @@ def hybrid_phase(dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# 8. bf16 vs fp32 on two full-width granite layers
+# 8. gemma3-12b at full width: one-shot prefill, lockstep decode over ring
+#    and full-depth caches, and an engine
+# ---------------------------------------------------------------------------
+
+
+def fill_cache_(cache, gen) -> None:
+    """Every KV entry of ``cache`` from ``gen`` (seeded), in place: the
+    work of a decode step does not depend on the cache's contents, as the
+    JAX package's dry-run ``decode_32k`` fills its caches with random
+    values."""
+    for name, t in cache.items():
+        if name != "length":
+            t.normal_(generator=gen)
+
+
+def lockstep_cache(dev, cfg, src, length: int) -> dict:
+    """A cache for ``cfg`` (cut to its first layers) holding copies of the
+    first layers' entries of ``src`` in ``cfg``'s compute dtype, at the 0-d
+    ``length``."""
+    n_local = sum(w < src["k_global"].shape[2]
+                  for w in cfg.layer_windows(src["k_global"].shape[2]))
+    n_global = cfg.n_layers - n_local
+    cut = {k: src[k][:n_local] for k in ("k_local", "v_local")}
+    cut.update({k: src[k][:n_global] for k in ("k_global", "v_global")})
+    cache = {k: v.to(cfg.torch_dtype(), copy=True) for k, v in cut.items()}
+    cache["length"] = torch.full((), length, dtype=torch.int32, device=dev)
+    return cache
+
+
+def lockstep_decode(dev, model, cfg) -> dict:
+    """The main path of lockstep decode: ``GEMMA_DECODE``'s steps from a
+    filled cache at a 0-d length, counts set to 0 just before and read just
+    after.  Returns the launches, the step times and the cache."""
+    from repro_torch.data import tokenizer as tok
+    from repro_torch.models import api
+
+    b, depth, length, steps = GEMMA_DECODE
+    torch.cuda.reset_peak_memory_stats(dev)
+    cache = api.init_cache(cfg, b, depth, dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(41)
+    fill_cache_(cache, gen)
+    cache["length"] = torch.full((), length, dtype=torch.int32, device=dev)
+    kv_bytes = {k: v.numel() * v.element_size() for k, v in cache.items()
+                if k != "length"}
+    rng = np.random.default_rng(43)
+    tokens = torch.from_numpy(rng.integers(3, tok.VOCAB_SIZE, (steps, b, 1))
+                              .astype(np.int32)).to(dev)
+    torch.cuda.synchronize()
+    reset_launches()
+    step_ms = []
+    for t in range(steps):
+        t0 = time.perf_counter()
+        logits, cache = api.serve_step(model, tokens[t], cache, cfg)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = read_launches()
+    n_global = cache["k_global"].shape[0]
+    want = dict.fromkeys(_ops_modules(), 0)
+    want["decode_attention"] = n_global * steps
+    if launches != want:
+        raise AssertionError(f"{GEMMA_ARCH} lockstep decode: launches "
+                             f"{launches}, expected {want}")
+    if (cache["length"].ndim != 0 or int(cache["length"]) != length + steps
+            or tuple(logits.shape) != (b, 1, cfg.vocab_size)
+            or not torch.isfinite(logits).all()):
+        raise AssertionError(f"{GEMMA_ARCH} lockstep decode: length "
+                             f"{cache['length']}, logits "
+                             f"{tuple(logits.shape)} finite "
+                             f"{bool(torch.isfinite(logits).all())}")
+    rest = step_ms[1:]
+    mean = sum(rest) / len(rest)
+    dev_ms, top = profile_steps(model, cfg, cache,
+                                tokens[:GEMMA_PROFILE_STEPS])
+    log("gemma3", f"lockstep decode B={b}, cache depth {depth} (rings "
+        f"{kv_bytes['k_local'] + kv_bytes['v_local']} bytes for "
+        f"{cache['k_local'].shape[0]} local layers of window "
+        f"{cache['k_local'].shape[2]}, full-depth "
+        f"{kv_bytes['k_global'] + kv_bytes['v_global']} bytes for "
+        f"{n_global} global layers), 0-d length {length} → "
+        f"{int(cache['length'])}: {steps} serve_steps, first "
+        f"{step_ms[0]:.3f} ms, then {mean:.3f} ms per step (median "
+        f"{sorted(rest)[len(rest) // 2]:.3f}, min {min(rest):.3f}, max "
+        f"{max(rest):.3f}), {b * 1e3 / mean:.1f} tokens/s; decode_attention "
+        f"launches {launches['decode_attention']} ({n_global} per step), "
+        f"no other kernel; max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated(dev)} bytes")
+    log("profile", f"gemma3 lockstep decode, {GEMMA_PROFILE_STEPS} more "
+        f"steps under torch.profiler: {dev_ms:.3f} ms of kernels per step, "
+        f"card busy {dev_ms / mean:.4f} of the main run's mean step")
+    for line in top:
+        log("profile", line)
+    return {"launches": launches, "step_ms": step_ms, "cache": cache}
+
+
+def profile_steps(model, cfg, cache, tokens) -> tuple:
+    """Kernel time per lockstep step on the card (torch.profiler, device
+    activity only) over ``len(tokens)`` steps after the main run: (ms per
+    step, log lines of the top kernels)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import api
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for t in tokens:
+            api.serve_step(model, t, cache, cfg)
+        torch.cuda.synchronize()
+    return kernel_times(prof, len(tokens), "gemma3 lockstep decode")
+
+
+def lockstep_pallas_gap(dev, model, cfg, cache) -> tuple:
+    """One lockstep ``serve_step`` from copies of the same filled cache
+    with ``use_pallas`` True (the decode kernel at the global layers) and
+    False (``decode_attend``): (their logit gap, the kernel's launches)."""
+    from repro_torch.models import api
+
+    length = int(cache["length"])
+    tokens = torch.arange(3, 3 + cache["k_local"].shape[1], device=dev,
+                          dtype=torch.int32)[:, None]
+    outs = []
+    reset_launches()
+    for use_pallas in (True, False):
+        c = dataclasses.replace(cfg, use_pallas=use_pallas)
+        outs.append(api.serve_step(model, tokens,
+                                   lockstep_cache(dev, c, cache, length),
+                                   c)[0][:, 0])
+    launches = read_launches()["decode_attention"]
+    return logit_gap(outs[1], outs[0]), launches
+
+
+def feed_gaps(dev, model, cfg, n: int, depth: int) -> tuple:
+    """Feed ``n`` seeded tokens (B=2) one at a time through
+    ``api.serve_step`` in lockstep (a 0-d length from 0) into a
+    ``depth``-deep cache — rings of the window for the local layers, which
+    wrap once n > window, and the decode kernel at every global layer,
+    every step — and hold each step's logits against one-shot
+    ``api.forward`` at the same position: (the gap at every position as
+    max |diff| over the position's logit range, worst row; decode kernel
+    launches; seconds per step; the cache after the feed; the tokens)."""
+    from repro_torch.data import tokenizer as tok
+    from repro_torch.models import api
+
+    rng = np.random.default_rng(47)
+    toks = torch.from_numpy(rng.integers(3, tok.VOCAB_SIZE, (2, n))
+                            .astype(np.int32)).to(dev)
+    cache = api.init_cache(cfg, 2, depth, dev)
+    cache["length"] = torch.zeros((), dtype=torch.int32, device=dev)
+    torch.cuda.synchronize()
+    reset_launches()
+    outs, t = [], time.perf_counter()
+    for i in range(n):
+        out, cache = api.serve_step(model, toks[:, i:i + 1], cache, cfg)
+        outs.append(out[:, 0])
+    torch.cuda.synchronize()
+    sec = (time.perf_counter() - t) / n
+    launches = read_launches()["decode_attention"]
+    token_wise = torch.stack(outs, 1).float()
+    one = api.forward(model, {"tokens": toks}, cfg).logits.float()
+    gaps = ((token_wise - one).abs().amax(-1)
+            / one.abs().amax(-1)).amax(0).cpu().numpy()
+    return gaps, launches, sec, cache, toks
+
+
+def view_cache_gap(view, cfg, cache, toks) -> float:
+    """A one-layer view's cache after ``feed_gaps`` against the K/V that
+    one-shot attention computes for the same tokens (the layer's input is
+    the embedding, the same on both paths): the ring must hold, in slot
+    i, the last position p with p % W == i; a full-depth cache positions
+    0..n-1.  Max |diff| over the range of the one-shot K or V."""
+    from repro_torch.models import attention
+    from repro_torch.models.layers import embed, rms_norm
+
+    layer = view.layers[0]
+    b, n = toks.shape
+    x = rms_norm(embed(view.embed, toks, cfg.torch_dtype()), layer.norm_attn,
+                 cfg.norm_eps)
+    pos = torch.arange(n, dtype=torch.int32, device=toks.device).expand(b, n)
+    _, k, v = attention.project_qkv(layer.attn, x, pos, cfg)
+    if cache["k_local"].shape[0]:
+        w = cache["k_local"].shape[2]
+        slot = torch.arange(w, device=toks.device)
+        where = (n - 1) - ((n - 1 - slot) % w)       # position in each slot
+        got, want = (cache["k_local"][0], cache["v_local"][0]), (k[:, where],
+                                                                 v[:, where])
+    else:
+        got = (cache["k_global"][0][:, :n], cache["v_global"][0][:, :n])
+        want = (k, v)
+    return max(float((g.float() - r.float()).abs().max()
+                     / r.float().abs().max()) for g, r in zip(got, want))
+
+
+def gemma3_checks(dev, model, cfg, cache) -> None:
+    """Checked, in bf16 and on the same weights upcast in fp32, at 0.05
+    (bf16) and 1e-4 (fp32) of the logit range:
+    - at the first ``GEMMA_CHECK_DEPTH`` layers (5 rings and one global
+      layer): one lockstep step with ``use_pallas`` True vs False from the
+      filled caches;
+    - the ring-wrapping feed of ``GEMMA_FEED`` against one-shot
+      attention in one-layer views of that group — its first ring layer
+      (the 1024-slot ring wraps) and its global layer (the decode kernel
+      every step): the cache after the feed against the one-shot K/V
+      (each ring slot must hold the last position that maps to it), and
+      the logits against one-shot ``api.forward`` at the median of the
+      per-position gaps past the window — a wrong slot or mask after the
+      wrap moves every one of them — and their maximum over the whole feed
+      at ``GEMMA_FEED_MAX_TOL``, which a fault at a few positions moves
+      (one layer at full width with random weights already amplifies fp32
+      rounding a hundredfold at single positions: PERF.md).
+    Printed, not checked: the full-depth gaps in bf16 (``use_pallas`` from
+    the filled caches, a ``GEMMA_FULL_FEED``-token feed); a random stack
+    amplifies rounding along the sequence and with depth (PERF.md)."""
+    n, (feed, depth) = GEMMA_CHECK_DEPTH, GEMMA_FEED
+    view, cut = layers_view(model, cfg, range(n))
+    m32, cut32 = upcast(dev, view, cut)
+    p = cfg.local_per_global + 1
+    fails = []
+    for label, m, c, tol in (("bf16", view, cut, PREFILL_REL_TOL),
+                             ("fp32", m32, cut32, PREFILL_FP32_REL_TOL)):
+        pallas, n_pallas = lockstep_pallas_gap(dev, m, c, cache)
+        if n_pallas != 1:
+            raise AssertionError(f"{GEMMA_ARCH}, first {n} layers, {label}: "
+                                 f"{n_pallas} decode_attention launches in "
+                                 f"one use_pallas step")
+        log("gemma3", f"first {n} layers, {label}: use_pallas True vs False "
+            f"from the filled caches (B={cache['k_local'].shape[1]}, length "
+            f"{int(cache['length'])}) max |diff| {pallas[0]:.7f} of the logit "
+            f"range (mean {pallas[1]:.7f}); limit {tol}")
+        if not pallas[0] <= tol:
+            fails.append(f"{label} use_pallas {pallas[0]:.7f} > {tol}")
+        for what, index, lpg in (("ring layer", 0, p - 1),
+                                 ("global layer", p - 1, 0)):
+            lv, lc = layers_view(m, c, [index], local_per_global=lpg)
+            gaps, launches, sec, fed, toks = feed_gaps(dev, lv, lc, feed,
+                                                       depth)
+            kv_gap = view_cache_gap(lv, lc, fed, toks)
+            del fed
+            want = feed if what == "global layer" else 0
+            if launches != want:
+                raise AssertionError(f"{GEMMA_ARCH} {what} {index}, {label}: "
+                                     f"{launches} decode_attention launches "
+                                     f"in a feed of {feed}, expected {want}")
+            past = float(np.median(gaps[c.window:]))
+            top, max_tol = float(gaps.max()), GEMMA_FEED_MAX_TOL[label]
+            log("gemma3", f"{what} {index} alone, {label}: lockstep feed of "
+                f"{feed} tokens into a {depth}-deep cache: cache vs one-shot "
+                f"K/V {kv_gap:.7f} of their range; logits vs one-shot "
+                f"forward, per-position gap: median past position "
+                f"{c.window} {past:.7f} (limit {tol} for both), 90th "
+                f"percentile {np.percentile(gaps[c.window:], 90):.7f}, max "
+                f"past it {float(gaps[c.window:].max()):.7f}, max {top:.7f} "
+                f"at {int(gaps.argmax())} (limit {max_tol}), last "
+                f"{gaps[-1]:.7f}; {launches} decode launches, "
+                f"{sec * 1e3:.3f} ms per step")
+            for name, gap, lim in (("K/V", kv_gap, tol),
+                                   ("logits", past, tol),
+                                   ("largest logit gap", top, max_tol)):
+                if not gap <= lim:
+                    fails.append(f"{label} {what} {index} {name} {gap:.7f} "
+                                 f"> {lim}")
+    del m32
+    torch.cuda.empty_cache()
+    if fails:
+        raise AssertionError(f"{GEMMA_ARCH} checks: {'; '.join(fails)}")
+    log("gemma3", f"first group: bf16 gaps within {PREFILL_REL_TOL}, fp32 "
+        f"within {PREFILL_FP32_REL_TOL} of the logit range, largest feed "
+        f"gaps within {GEMMA_FEED_MAX_TOL} (checked)")
+    pallas, _ = lockstep_pallas_gap(dev, model, cfg, cache)
+    gaps, _, sec, _, _ = feed_gaps(dev, model, cfg, GEMMA_FULL_FEED, depth)
+    log("gemma3", f"full depth ({cfg.n_layers} layers), bf16, not checked: "
+        f"use_pallas True vs False {pallas[0]:.5f} of the logit range "
+        f"(mean {pallas[1]:.5f}); lockstep feed of {GEMMA_FULL_FEED} "
+        f"tokens vs one-shot forward, gap at the last position "
+        f"{gaps[-1]:.5f} (max {gaps.max():.5f}), {sec * 1e3:.3f} ms per step")
+
+
+def gemma3_engine(dev, model, cfg) -> None:
+    """A ``ModelEngine`` on gemma3's weights at ``GEMMA_ENGINE_MAX_LEN``
+    (deeper than the window: ring caches, no ``k`` entry), serving
+    ``GEMMA_REQUESTS`` token-wise through per-slot lengths — the plain
+    decode attention, never the kernel, as in the JAX package."""
+    from repro_torch.core.types import Query
+    from repro_torch.data import stream as stream_lib
+    from repro_torch.data import tokenizer as tok
+    from repro_torch.serving.engine import ModelEngine
+    from repro_torch.serving.request import Request
+
+    n_req, n_prompt, n_new = GEMMA_REQUESTS
+    eng = ModelEngine(GEMMA_ARCH, cfg, max_batch=n_req,
+                      max_len=GEMMA_ENGINE_MAX_LEN, params=model,
+                      detokenize=tok.decode, prefill_chunk=SERVE_CHUNK,
+                      device=dev)
+    reqs = [Request(query=Query(uid=q.uid, text=q.text),
+                    prompt_tokens=tok.encode(q.text)[:n_prompt],
+                    max_new_tokens=n_new)
+            for q in stream_lib.make_stream(per_task=1, seed=3)[:n_req]]
+    eng.submit_many(reqs)
+    reset_launches()
+    done, t = [], time.perf_counter()
+    while eng.pending:
+        done += eng.step()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = read_launches()
+    if len(done) != n_req or eng.nonfinite_ticks:
+        raise AssertionError(f"{GEMMA_ARCH} engine: {len(done)}/{n_req} "
+                             f"answered, {eng.nonfinite_ticks} ticks with "
+                             f"non-finite logits")
+    if ("k" in eng.cache or eng.prefill_chunk != 1
+            or eng.tick_counts["chunk"] or any(launches.values())):
+        raise AssertionError(f"{GEMMA_ARCH} engine: cache "
+                             f"{sorted(eng.cache)}, chunk "
+                             f"{eng.prefill_chunk}, ticks {eng.tick_counts}, "
+                             f"launches {launches}: not token-wise on rings")
+    n_d, s_d = eng.tick_counts["decode"], eng.tick_seconds["decode"]
+    prompt = sum(len(r.prompt_tokens) for r in reqs)
+    log("gemma3", f"engine at max_len {GEMMA_ENGINE_MAX_LEN} (rings "
+        f"{tuple(eng.cache['k_local'].shape)}, global "
+        f"{tuple(eng.cache['k_global'].shape)}): {len(done)}/{n_req} "
+        f"requests answered ({prompt} prompt tokens fed token-wise, "
+        f"{sum(r.output_tokens for r in done)} tokens generated) in "
+        f"{wall:.3f} s; {n_d} decode ticks, {s_d / max(n_d, 1) * 1e3:.3f} ms "
+        f"each; finite logits; no kernel launched")
+
+
+def gemma3_phase(dev) -> dict:
+    """gemma3-12b at full width (bf16, ``use_pallas=True``, random weights
+    from a seed): its one-shot prefill through the flash kernel at hd 256,
+    lockstep decode through the decode-attention kernel, the first-group
+    checks and the engine.  Returns the prefill's and the lockstep
+    decode's launches."""
+    from repro_torch.configs import for_mode, get_config
+    from repro_torch.data import tokenizer as tok
+    from repro_torch.models import api
+
+    cfg = for_mode(get_config(GEMMA_ARCH, vocab_size=tok.VOCAB_SIZE,
+                              use_pallas=True), "serve")
+    t = time.perf_counter()
+    model = api.init_params(cfg, seed=len(SERVE_ARCHS) + 1, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    weights = sum(p.numel() * p.element_size() for p in model.parameters())
+    windows = cfg.layer_windows(GEMMA_DECODE[1])
+    log("gemma3", f"{GEMMA_ARCH}: {cfg.n_layers}/{cfg.n_layers} layers (no "
+        f"depth cut; {sum(w < GEMMA_DECODE[1] for w in windows)} local of "
+        f"window {cfg.window}, {sum(w == GEMMA_DECODE[1] for w in windows)} "
+        f"global), d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} "
+        f"heads of {cfg.head_dim}, d_ff {cfg.d_ff}, tied embeddings; "
+        f"{n_params / 1e9:.3f} B params, {weights} bytes in bf16, built in "
+        f"{time.perf_counter() - t:.2f} s")
+    rng = np.random.default_rng(53)
+    prefill, batch = drive_prefill(dev, GEMMA_ARCH, model, cfg,
+                                   *GEMMA_PREFILL, rng)
+    del batch
+    torch.cuda.empty_cache()
+    run = lockstep_decode(dev, model, cfg)
+    t = time.perf_counter()
+    gemma3_checks(dev, model, cfg, run["cache"])
+    del run["cache"]
+    torch.cuda.empty_cache()
+    log("gemma3", f"checks {time.perf_counter() - t:.2f} s")
+    gemma3_engine(dev, model, cfg)
+    return {"prefill": prefill, "decode": run["launches"]}
+
+
+# ---------------------------------------------------------------------------
+# 9. bf16 vs fp32 on two full-width granite layers
 # ---------------------------------------------------------------------------
 
 
@@ -1348,6 +1872,7 @@ def main() -> int:
     flash = flash_phase(dev)
     wkv = wkv_phase(dev)
     ssd = ssd_phase(dev)
+    decode = decode_phase(dev)
     log("kernels", f"phase {time.perf_counter() - t:.2f} s")
     t = time.perf_counter()
     router_phase(dev)
@@ -1365,6 +1890,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     log("hybrid", f"phase {time.perf_counter() - t:.2f} s")
     t = time.perf_counter()
+    gemma3 = gemma3_phase(dev)
+    torch.cuda.empty_cache()
+    log("gemma3", f"phase {time.perf_counter() - t:.2f} s")
+    t = time.perf_counter()
     engine_crosscheck(dev)
     log("crosscheck", f"phase {time.perf_counter() - t:.2f} s")
     log("total", f"{time.perf_counter() - t_start:.2f} s after the build")
@@ -1374,11 +1903,14 @@ def main() -> int:
     # row is granite's one-shot prefill (B = 2, S = 2048), the WKV row
     # rwkv6's (B = 2, S = 2048), the SSD row zamba2's (B = 1, S = 4096);
     # their launches are the one-shot prefills' (flash: the four served
-    # models' and zamba2's 13 sites)
+    # models', zamba2's 13 sites and gemma3's 48 layers).  The decode
+    # attention row is gemma3's global layers in lockstep decode (B = 4,
+    # cache_len 32705 of 32768), its launches those of the 32 steps
     f1 = next(r for r in feat["rows"] if r["mode"] == "both" and r["q"] == 1)
     l1 = next(r for r in lin["rows"] if r["d"] == 12 and r["q"] == 1)
     g4 = next(r for r in gate["rows"] if r["t"] == 4 and not r["tied"])
     fa = flash["rows"][0]
+    da = decode["rows"][0]
 
     def row(name, src, replaces, n, worst, r, library_ms=None):
         return {"name": name, "route": "cuda",
@@ -1397,12 +1929,17 @@ def main() -> int:
             launches["moe_gating"], gate["worst"], g4),
         row("flash_attention", "flash_attention.cu",
             "flash_attention/kernel.py:33",
-            prefill["flash_attention"] + hybrid["flash_attention"],
+            prefill["flash_attention"] + hybrid["flash_attention"]
+            + gemma3["prefill"]["flash_attention"],
             flash["worst"], fa, fa["library_ms"]),
         row("rwkv6", "rwkv6.cu", "rwkv6/kernel.py:25", prefill["rwkv6"],
             wkv["worst"], wkv["rows"][0]),
         row("mamba2", "mamba2.cu", "mamba2/kernel.py:25", hybrid["mamba2"],
             ssd["worst"], ssd["rows"][0]),
+        row("decode_attention", "decode_attention.cu",
+            "decode_attention/kernel.py:29",
+            gemma3["decode"]["decode_attention"], decode["worst"], da,
+            da["library_ms"]),
     ]
     for k in kernels:
         if k["launches"] <= 0:

@@ -1,5 +1,6 @@
-"""Architecture registry: the dense, MoE, RWKV6 and Mamba2-hybrid configs
-this package serves, plus reduced smoke variants.
+"""Architecture registry: the dense (full, sliding-window and local:global),
+MoE, RWKV6 and Mamba2-hybrid configs this package serves, plus reduced
+smoke variants.
 
 Usage:
     from repro_torch.configs import get_config, for_mode
@@ -11,12 +12,12 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, List
 
-from repro_torch.configs import (granite_3_8b, h2o_danube_3_4b,
+from repro_torch.configs import (gemma3_12b, granite_3_8b, h2o_danube_3_4b,
                                  qwen2_moe_a2_7b, rwkv6_1_6b, zamba2_7b)
 from repro_torch.models.config import ModelConfig, scaled_down
 
 _MODULES = [granite_3_8b, h2o_danube_3_4b, qwen2_moe_a2_7b, rwkv6_1_6b,
-            zamba2_7b]
+            zamba2_7b, gemma3_12b]
 
 REGISTRY: Dict[str, ModelConfig] = {m.ARCH_ID: m.CONFIG for m in _MODULES}
 ARCH_IDS: List[str] = list(REGISTRY)

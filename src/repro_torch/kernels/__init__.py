@@ -1,6 +1,7 @@
 """Hand-written Hopper kernels — the router's (featurize, LinUCB) and the
-models' (MoE gating, flash-attention prefill, the RWKV6 WKV and Mamba2
-SSD prefill scans) — each beside its plain PyTorch version.
+models' (MoE gating, flash-attention prefill, decode attention over a
+long cache, the RWKV6 WKV and Mamba2 SSD prefill scans) — each beside its
+plain PyTorch version.
 
 Each kernel package ships ``kernel.py`` (the ctypes launcher of the CUDA
 kernel in ``csrc/``), ``ops.py`` (the public wrapper: the JAX package's

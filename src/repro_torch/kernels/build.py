@@ -23,7 +23,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("featurize.cu", "linucb.cu", "moe_gating.cu",
-           "flash_attention.cu", "rwkv6.cu", "mamba2.cu")
+           "flash_attention.cu", "rwkv6.cu", "mamba2.cu",
+           "decode_attention.cu")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
@@ -40,6 +41,8 @@ _SIGNATURES = {
     "rwkv6_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "mamba2_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                       _P),
+    "decode_attention_launch": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                _I, _I, _I, _I, _P),
 }
 
 

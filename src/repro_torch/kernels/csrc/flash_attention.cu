@@ -22,19 +22,24 @@
 // bound; a wgmma redesign (hd padded to a multiple of 16) is later work.
 //
 // Design (simple and right first):
-//   * one 256-thread block per (q tile of 64 rows, q head, batch row);
+//   * one 256-thread block per (q tile of BQ rows, q head, batch row);
 //   * the block loops only over the kv tiles of 64 that the causal and
 //     window mask leave visible to some row of its q tile — the Pallas
 //     kernel's pl.when skip turned into loop bounds;
 //   * q (pre-scaled), k and v tiles are upcast to fp32 in shared memory
-//     (113 KB, opted in above the default 48 KB); rows are padded by one
-//     float so the per-column reads hit distinct banks;
-//   * thread (ty, tx) of a 16 x 16 grid owns rows ty + 16i (i < 4): scores
-//     of columns tx + 16j (j < 4) and output columns tx + 16j (j < 8, <
-//     hd).  A row's 16 threads sit in one half-warp, so its max and sum
-//     are shuffle butterflies; each thread keeps m and l of its rows;
-//   * ragged Sq and Sk are masked in the kernel (no divisor-picking); hd
-//     may be any value up to 128, e.g. 120 for h2o-danube-3-4b.
+//     (opted in above the default 48 KB); rows are padded by one float so
+//     the per-column reads hit distinct banks;
+//   * thread (ty, tx) of a 16 x 16 grid owns rows ty + 16i (i < BQ / 16):
+//     scores of columns tx + 16j (j < 4) and output columns tx + 16j (j <
+//     HD / 16, < hd).  A row's 16 threads sit in one half-warp, so its max
+//     and sum are shuffle butterflies; each thread keeps m and l of its
+//     rows;
+//   * two tile configurations, one kernel template: hd <= 128 (e.g. 120
+//     for h2o-danube-3-4b) takes q tiles of 64 rows and 113 KB of shared
+//     memory, two blocks per SM; hd <= 256 (gemma3-12b's 256) would need
+//     214 KB and twice the accumulators at 64 rows, so it takes q tiles of
+//     32 rows: 172.5 KB, one block per SM, 2 x 16 accumulators a thread;
+//   * ragged Sq and Sk are masked in the kernel (no divisor-picking).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -42,16 +47,26 @@
 
 namespace {
 
-constexpr int kBQ = 64;                 // q rows per block
 constexpr int kBK = 64;                 // kv rows per tile
-constexpr int kHdMax = 128;
 constexpr int kThreads = 256;
-constexpr int kQKStride = kHdMax + 1;   // padded rows of the q and k tiles
 constexpr int kPStride = kBK + 1;       // padded rows of the p tile
+constexpr int kHdLimit = 256;           // the widest configuration's hd
 constexpr float kNegInf = -2.3819763e38f;
-constexpr size_t kSmemBytes =
-    (static_cast<size_t>(kBQ) * kQKStride + kBK * kQKStride + kBK * kHdMax +
-     kBQ * kPStride) * sizeof(float);
+
+// A tile configuration: q rows per block and the largest hd it holds.
+template <int BQ, int HD>
+struct Tile {
+  static constexpr int kBQ = BQ;
+  static constexpr int kHdMax = HD;
+  static constexpr int kRows = BQ / 16;     // q rows a thread owns
+  static constexpr int kCols = HD / 16;     // output columns a thread owns
+  static constexpr int kQKStride = HD + 1;  // padded rows of the q, k tiles
+  static constexpr size_t kSmemBytes =
+      (static_cast<size_t>(BQ) * kQKStride + kBK * kQKStride + kBK * HD +
+       BQ * kPStride) * sizeof(float);
+};
+using NarrowTile = Tile<64, 128>;           // hd <= 128: 113 KB
+using WideTile = Tile<32, kHdLimit>;        // hd <= 256: 172.5 KB
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -81,12 +96,17 @@ __device__ __forceinline__ float row_sum(float x) {
   return x;
 }
 
-template <typename T>
+template <typename T, typename C>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ out, int sq,
                        int sk, int hq, int hk, int hd, int window, int causal,
                        float scale) {
+  constexpr int kBQ = C::kBQ;
+  constexpr int kHdMax = C::kHdMax;
+  constexpr int kRows = C::kRows;
+  constexpr int kCols = C::kCols;
+  constexpr int kQKStride = C::kQKStride;
   extern __shared__ float smem[];
   float* qs = smem;                       // kBQ x kQKStride
   float* ks = qs + kBQ * kQKStride;       // kBK x kQKStride
@@ -116,13 +136,13 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int k_lo = (max(0, q0 - window + 1) / kBK) * kBK;
   const int k_hi = causal ? min(sk, q_last + 1) : sk;      // exclusive
 
-  float m[4], l[4], o[4][8];
+  float m[kRows], l[kRows], o[kRows][kCols];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < kRows; ++i) {
     m[i] = kNegInf;
     l[i] = 0.0f;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) o[i][j] = 0.0f;
+    for (int j = 0; j < kCols; ++j) o[i][j] = 0.0f;
   }
 
   for (int k0 = k_lo; k0 < k_hi; k0 += kBK) {
@@ -142,25 +162,26 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     __syncthreads();
 
-    float s[4][4];
+    float s[kRows][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < kRows; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = 0.0f;
     for (int d = 0; d < hd; ++d) {
-      float qv[4], kv[4];
+      float qv[kRows], kv[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = qs[(ty + 16 * i) * kQKStride + d];
+      for (int i = 0; i < kRows; ++i)
+        qv[i] = qs[(ty + 16 * i) * kQKStride + d];
 #pragma unroll
       for (int j = 0; j < 4; ++j) kv[j] = ks[(tx + 16 * j) * kQKStride + d];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < kRows; ++i)
 #pragma unroll
         for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
     }
 
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < kRows; ++i) {
       const int r = ty + 16 * i;
       const int qp = q0 + r;
       float mx = kNegInf;
@@ -185,55 +206,68 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       l[i] = l[i] * corr + row_sum(sum);
       m[i] = m_new;
 #pragma unroll
-      for (int j = 0; j < 8; ++j) o[i][j] *= corr;
+      for (int j = 0; j < kCols; ++j) o[i][j] *= corr;
     }
     __syncthreads();                      // the p tile is complete
 
     for (int c = 0; c < kBK; ++c) {
-      float pv[4];
+      float pv[kRows];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = ps[(ty + 16 * i) * kPStride + c];
+      for (int i = 0; i < kRows; ++i)
+        pv[i] = ps[(ty + 16 * i) * kPStride + c];
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
+      for (int j = 0; j < kCols; ++j) {
         const int d = tx + 16 * j;
         if (d < hd) {
           const float vx = vs[c * kHdMax + d];
 #pragma unroll
-          for (int i = 0; i < 4; ++i) o[i][j] = fmaf(pv[i], vx, o[i][j]);
+          for (int i = 0; i < kRows; ++i) o[i][j] = fmaf(pv[i], vx, o[i][j]);
         }
       }
     }
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < kRows; ++i) {
     const int qp = q0 + ty + 16 * i;
     if (qp >= sq) continue;
     const float denom = fmaxf(l[i], 1e-30f);
     T* row = out + ((static_cast<size_t>(b) * sq + qp) * hq + h) * hd;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+    for (int j = 0; j < kCols; ++j) {
       const int d = tx + 16 * j;
       if (d < hd) store(row + d, o[i][j] / denom);
     }
   }
 }
 
-template <typename T>
-int launch(const void* q, const void* k, const void* v, void* out, int b,
-           int sq, int sk, int hq, int hk, int hd, int window, int causal,
-           cudaStream_t stream) {
+template <typename T, typename C>
+int launch_tile(const void* q, const void* k, const void* v, void* out,
+                int b, int sq, int sk, int hq, int hk, int hd, int window,
+                int causal, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(kSmemBytes));
+      flash_attention_kernel<T, C>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(C::kSmemBytes));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((sq + kBQ - 1) / kBQ, hq, b);
-  flash_attention_kernel<T><<<grid, kThreads, kSmemBytes, stream>>>(
+  const dim3 grid((sq + C::kBQ - 1) / C::kBQ, hq, b);
+  flash_attention_kernel<T, C><<<grid, kThreads, C::kSmemBytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out), sq, sk, hq, hk, hd,
       window, causal,
       static_cast<float>(1.0 / sqrt(static_cast<double>(hd))));  // hd ** -0.5
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch(const void* q, const void* k, const void* v, void* out, int b,
+           int sq, int sk, int hq, int hk, int hd, int window, int causal,
+           cudaStream_t stream) {
+  return hd <= NarrowTile::kHdMax
+             ? launch_tile<T, NarrowTile>(q, k, v, out, b, sq, sk, hq, hk,
+                                          hd, window, causal, stream)
+             : launch_tile<T, WideTile>(q, k, v, out, b, sq, sk, hq, hk, hd,
+                                        window, causal, stream);
 }
 
 }  // namespace
@@ -243,14 +277,14 @@ int launch(const void* q, const void* k, const void* v, void* out, int b,
 // window counts the visible past positions including self; causal is 0 or
 // 1.  Returns the launch's cudaError_t (0 = launched);
 // cudaErrorInvalidValue, without launching, for what the kernel does not
-// take: hd outside [1, 128], hk < 1 or hq not a multiple of hk, more than
+// take: hd outside [1, 256], hk < 1 or hq not a multiple of hk, more than
 // 65535 heads or batch rows (grid y and z), or another dtype.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* out, int b, int sq,
                                       int sk, int hq, int hk, int hd,
                                       int window, int causal, int dtype,
                                       void* stream) {
-  if (hd < 1 || hd > kHdMax || hk < 1 || hq < hk || hq % hk ||
+  if (hd < 1 || hd > kHdLimit || hk < 1 || hq < hk || hq % hk ||
       hq > 65535 || b > 65535 || sq < 0 || sk < 0 || b < 0 ||
       (dtype != 0 && dtype != 1))
     return static_cast<int>(cudaErrorInvalidValue);

@@ -14,7 +14,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q (B, Sq, Hq, hd), k/v (B, Sk, Hk, hd), contiguous CUDA tensors of
     one dtype (fp32 or bf16) on one device → (B, Sq, Hq, hd) in that
     dtype, launched on the current stream.  A shape the kernel does not
-    take (hd > 128, Hq not a multiple of Hk) is refused by the C launcher
+    take (hd > 256, Hq not a multiple of Hk) is refused by the C launcher
     and raises."""
     b, sq, hq, hd = q.shape
     sk, hk = k.shape[1], k.shape[2]

@@ -1,6 +1,6 @@
-"""Model API for the serving engine and the one-shot prefill (the dense,
-MoE, RWKV6 and Mamba2-hybrid subset of the JAX package's
-``models/api.py``):
+"""Model API for the serving engine, the one-shot prefill and lockstep
+decode (the dense, MoE, RWKV6 and Mamba2-hybrid subset of the JAX
+package's ``models/api.py``):
 
     init_params(cfg, seed, device)          initialized model
     forward(model, batch, cfg)              full-sequence logits + MoE aux
@@ -13,9 +13,11 @@ MoE, RWKV6 and Mamba2-hybrid subset of the JAX package's
 
 ``batch`` is a dict with ``tokens`` (B, S) int32.  ``device=None`` means
 the card (``device.resolve_device``); pass ``device="cpu"`` for the CPU.
-The recurrent layouts (rwkv, mamba_hybrid) serve prompts token-wise
-through ``serve_step``; ``prefill_chunk`` and ``splice_prefix`` need the
-full-depth positional KV cache of the dense and MoE layouts.
+The recurrent layouts (rwkv, mamba_hybrid) and windowed caches (ring
+buffers: dense sliding-window and local:global stacks deeper than their
+window) serve prompts token-wise through ``serve_step``;
+``prefill_chunk`` and ``splice_prefix`` need the full-depth positional KV
+cache of the dense and MoE layouts.
 """
 from __future__ import annotations
 
@@ -54,7 +56,15 @@ def prefill(model: DecoderLM, batch: Batch, cfg: ModelConfig) -> torch.Tensor:
 
 def serve_step(model: DecoderLM, token: torch.Tensor, cache: Cache,
                cfg: ModelConfig) -> Tuple[torch.Tensor, Cache]:
-    """One new token against the cache: (logits (B,1,V), cache)."""
+    """One new token against the cache: (logits (B,1,V), cache).
+
+    ``cache["length"]`` is either (B,) — per-slot lengths, as the serving
+    engine keeps them — or a 0-d tensor, every row at the same length
+    (lockstep decode, the JAX package's dry-run ``serve_step``); a 0-d
+    length comes back 0-d.  Only a 0-d length sends the full-depth caches
+    of S ≥ 2048 through the decode-attention kernel under
+    ``cfg.use_pallas`` (per-slot lengths attend through the plain
+    ``decode_attend``, as in the JAX package)."""
     return lm.decode_step(model, token, cache, cfg)
 
 

@@ -1,15 +1,19 @@
 """GQA attention: one-shot prefill over a whole sequence, chunked prefill
-against a decode cache, and single-token decode over full-depth per-slot
-KV caches.
+against a decode cache, single-token decode over a full-depth KV cache,
+and single-token decode over a ring buffer the size of the window.
 
-One code path serves full and sliding-window attention — the per-layer
-``window`` scalar parameterizes the mask (window == sequence or cache
-depth ⇒ full causal attention).  Scores and softmax run in float32 with
-K/V read from their storage dtype.  One-shot prefill attends through the
-flash-attention kernel under ``cfg.use_pallas`` and through the blocked
-``flash_prefill`` otherwise.  The cache writes happen in place: the JAX
-package threads the cache through ``jit`` with donated buffers, which is
-the same single copy updated where it lies.
+One code path serves full, sliding-window and local:global attention —
+the per-layer ``window`` scalar parameterizes the mask (window == sequence
+or cache depth ⇒ full causal attention).  Scores and softmax run in
+float32 with K/V read from their storage dtype.  One-shot prefill attends
+through the flash-attention kernel under ``cfg.use_pallas`` and through
+the blocked ``flash_prefill`` otherwise.  Decode takes a cache length that
+is a (B,) vector (per-slot lengths: the serving engine) or a 0-d tensor
+(every row in lockstep: the model API's ``serve_step``); with a 0-d length
+a full-depth cache of S ≥ 2048 under ``cfg.use_pallas`` attends through
+the decode-attention kernel, as in the JAX package.  The cache writes
+happen in place: the JAX package threads the cache through ``jit`` with
+donated buffers, which is the same single copy updated where it lies.
 """
 from __future__ import annotations
 
@@ -18,6 +22,7 @@ from typing import Tuple
 import torch
 from torch import nn
 
+from repro_torch.kernels.decode_attention import ops as da_ops
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import apply_rope, param
@@ -106,12 +111,20 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, hd).to(q.dtype)
 
 
+def lengths_vec(cache_len: torch.Tensor, b: int) -> torch.Tensor:
+    """Cache lengths as (B,) int32: a 0-d length is broadcast (lockstep
+    ``serve_step``), per-slot vectors pass through (continuous-batching
+    engine)."""
+    cl = cache_len.to(torch.int32)
+    return cl.expand(b) if cl.ndim == 0 else cl
+
+
 def decode_attend(q: torch.Tensor, k_cache: torch.Tensor,
                   v_cache: torch.Tensor, window: int,
                   cache_len: torch.Tensor) -> torch.Tensor:
-    """q: (B, 1, Hq, hd); caches: (B, S, Hk, hd); ``cache_len`` (B,): slot
-    b attends to positions [cache_len_b - window, cache_len_b).  Scores
-    accumulate in float32."""
+    """q: (B, 1, Hq, hd); caches: (B, S, Hk, hd); ``cache_len`` 0-d or
+    (B,): slot b attends to positions [cache_len_b - window,
+    cache_len_b).  Scores accumulate in float32."""
     b, _, hq, hd = q.shape
     s, hk = k_cache.shape[1], k_cache.shape[2]
     group = hq // hk
@@ -119,7 +132,7 @@ def decode_attend(q: torch.Tensor, k_cache: torch.Tensor,
     q4 = q.reshape(b, hk, group, hd).float()
     scores = torch.einsum("bhgd,bshd->bhgs", q4, k_cache.float()) * scale
     pos = torch.arange(s, device=q.device)
-    cl = cache_len[:, None]                                    # (B, 1)
+    cl = lengths_vec(cache_len, b)[:, None]                    # (B, 1)
     valid = (pos[None] < cl) & (pos[None] >= cl - window)      # (B, S)
     scores = torch.where(valid[:, None, None, :], scores, _neg_inf(scores))
     p = torch.softmax(scores, dim=-1)
@@ -221,17 +234,64 @@ def attention_decode(params: Attention, x: torch.Tensor,
                      k_cache: torch.Tensor, v_cache: torch.Tensor,
                      window: int, cache_len: torch.Tensor,
                      cfg: ModelConfig) -> torch.Tensor:
-    """x: (B, 1, d); ``cache_len`` (B,) per-slot lengths.  Appends the new
-    K/V at each slot's length in place (a slot already at the cache end
-    writes nothing), then attends.  Returns out (B, 1, d)."""
+    """x: (B, 1, d); ``cache_len`` (B,) per-slot lengths or 0-d (every row
+    at the same length).  Appends the new K/V in place, then attends.
+    Returns out (B, 1, d).
+
+    The append, as the JAX package makes it: a masked ``where`` when
+    ``cfg.kv_update == "where"`` or the length is a vector (a slot already
+    at the cache end writes nothing); otherwise the
+    ``dynamic_update_slice`` append, whose start index is clamped to
+    [0, S - 1] (at length == S it overwrites position S - 1).  With a 0-d
+    length, ``cfg.use_pallas`` and a cache of S ≥ 2048 the attention runs
+    through the decode-attention kernel, else through ``decode_attend``.
+    """
     dt = cfg.torch_dtype()
-    positions = cache_len[:, None]
-    q, k_new, v_new = project_qkv(params, x, positions, cfg)
-    sel = (torch.arange(k_cache.shape[1], device=x.device)[None]
-           == cache_len[:, None])[:, :, None, None]
-    k_cache.copy_(torch.where(sel, k_new.to(k_cache.dtype), k_cache))
-    v_cache.copy_(torch.where(sel, v_new.to(v_cache.dtype), v_cache))
-    out = decode_attend(q, k_cache, v_cache, window, cache_len + 1)
+    s = k_cache.shape[1]
+    lockstep = cache_len.ndim == 0
+    lengths = lengths_vec(cache_len, x.shape[0])
+    q, k_new, v_new = project_qkv(params, x, lengths[:, None], cfg)
+    if cfg.kv_update == "where" or not lockstep:
+        sel = (torch.arange(s, device=x.device)[None]
+               == lengths[:, None])[:, :, None, None]
+        k_cache.copy_(torch.where(sel, k_new.to(k_cache.dtype), k_cache))
+        v_cache.copy_(torch.where(sel, v_new.to(v_cache.dtype), v_cache))
+    else:
+        start = cache_len.clamp(0, s - 1).reshape(1).long()
+        k_cache.index_copy_(1, start, k_new.to(k_cache.dtype))
+        v_cache.index_copy_(1, start, v_new.to(v_cache.dtype))
+    if cfg.use_pallas and s >= 2048 and lockstep:
+        out = da_ops.decode_attention(q, k_cache, v_cache, window,
+                                      cache_len + 1)
+    else:
+        out = decode_attend(q, k_cache, v_cache, window, lengths + 1)
+    return torch.einsum("bshk,hkd->bsd", out, params.wo.to(dt))
+
+
+def attention_decode_ring(params: Attention, x: torch.Tensor,
+                          k_ring: torch.Tensor, v_ring: torch.Tensor,
+                          cache_len: torch.Tensor,
+                          cfg: ModelConfig) -> torch.Tensor:
+    """Sliding-window decode against a ring buffer of W = the window: x
+    (B, 1, d); rings (B, W, Hk, hd); ``cache_len`` (B,) or 0-d.  The new
+    K/V land in slot length % W of each row, in place, then the row
+    attends to the live entries.  Returns out (B, 1, d).  This layout makes
+    gemma3-12b's 40 local layers hold 1,024 entries each instead of the
+    full cache depth."""
+    dt = cfg.torch_dtype()
+    b = x.shape[0]
+    lengths = lengths_vec(cache_len, b)
+    q, k_new, v_new = project_qkv(params, x, lengths[:, None], cfg)
+    w = k_ring.shape[1]
+    rows = torch.arange(b, device=x.device)
+    slot = (lengths % w).long()
+    k_ring[rows, slot] = k_new[:, 0].to(k_ring.dtype)
+    v_ring[rows, slot] = v_new[:, 0].to(v_ring.dtype)
+    # the ring is the window: entry i is live iff i < min(length + 1, W),
+    # which is decode_attend's mask at cache_len min(length + 1, W) and
+    # window W; softmax does not care about ring order (RoPE was applied
+    # at write time)
+    out = decode_attend(q, k_ring, v_ring, w, (lengths + 1).clamp(max=w))
     return torch.einsum("bshk,hkd->bsd", out, params.wo.to(dt))
 
 

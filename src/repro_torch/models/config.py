@@ -76,8 +76,9 @@ class ModelConfig:
                                       # "where" (masked elementwise) is the only
                                       # gather-free form when S is sharded
     use_pallas: bool = False          # kernel switch: MoE gating, one-shot
-                                      # prefill attention and the WKV / SSD
-                                      # prefill scans through kernels/
+                                      # prefill attention, the WKV / SSD
+                                      # prefill scans and lockstep decode
+                                      # attention through kernels/
 
     def __post_init__(self):
         if self.head_dim == 0:

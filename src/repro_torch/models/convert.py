@@ -1,7 +1,8 @@
 """Carry a JAX LM's parameters into this package's modules.
 
-``params_from_jax`` takes the JAX package's dense, MoE, RWKV6 or
-Mamba2-hybrid parameter tree —
+``params_from_jax`` takes the JAX package's dense (tied embeddings
+included: gemma3's tree has ``tok/embed`` alone, used as the LM head),
+MoE, RWKV6 or Mamba2-hybrid parameter tree —
 the dict ``repro.models.api.init_params`` returns, with leaves as numpy
 arrays (or anything ``numpy.asarray`` accepts) and per-layer leaves stacked
 on a leading layer axis — and returns a ``DecoderLM`` holding the same

@@ -4,19 +4,27 @@ Public surface:
     DecoderLM / init_lm(cfg, seed, device)  modules with initialized params
     forward_hidden(model, tokens, cfg)      final-normed hiddens + MoE aux
     forward(model, tokens, cfg)             full logits + MoE aux (ForwardOut)
-    init_cache(cfg, batch, max_len, device) per-slot decode cache
-    decode_step(model, token, cache, cfg)   one-token serve step
+    init_cache(cfg, batch, max_len, device) decode cache (ring buffers for
+                                            windowed layers deeper than
+                                            their window)
+    decode_step(model, token, cache, cfg)   one-token serve step, per-slot
+                                            or lockstep lengths
     prefill_chunk_step(model, toks, ...)    C-token prompt slab into the cache
                                             (dense and MoE only)
 
 The layer stack is a Python loop over ``nn.ModuleList`` blocks (the JAX
 package scans stacked parameters).  The hybrid's shared attention block
 (``shared_attn``) is one module applied after every ``attn_every``-th
-Mamba layer, the same weights at every site.  Cache updates happen in
-place; the returned cache is the same dict with its ``length`` advanced.
-The ``encdec`` layout — and stacks whose window is shorter than the cache,
-which the JAX package serves from ring buffers — raise
-``NotImplementedError``: they wait for later slices of the port.
+Mamba layer, the same weights at every site.  Dense sliding-window and
+local:global stacks whose window is shorter than the cache keep ring
+buffers of the window's size for their local layers (``k_local`` /
+``v_local``) beside full-depth caches for their global ones
+(``k_global`` / ``v_global``), as the JAX package's ``cache_shapes``.
+Cache updates happen in place; the returned cache is the same dict with
+its ``length`` advanced — a (B,) vector of per-slot lengths, or a 0-d
+length when every row decodes in lockstep, which stays 0-d.  The
+``encdec`` layout raises ``NotImplementedError``: it waits for a later
+slice of the port.
 """
 from __future__ import annotations
 
@@ -192,24 +200,32 @@ def forward(model: DecoderLM, tokens: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
+def _windowed(cfg: ModelConfig, max_len: int) -> bool:
+    """Whether the decode cache keeps ring buffers: a dense sliding-window
+    or local:global stack whose window is shorter than the cache (the JAX
+    package's rule; an MoE stack keeps full-depth caches)."""
+    return (cfg.layout == "dense"
+            and cfg.attn_pattern in ("swa", "local_global")
+            and max_len > cfg.window)
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device=None) -> Cache:
     """Per-slot decode cache on ``device`` (the card unless the caller
     names another), as the JAX package's ``cache_shapes``; every layout
-    has ``length`` (B,) int32.
+    has ``length`` (B,) int32 (set it to a 0-d tensor to decode every row
+    in lockstep).
 
     dense / moe: full-depth k/v (L, B, max_len, Hk, hd) in the compute
-    dtype.  rwkv: the recurrent state, shift_tm/shift_cm (L, B, d) and wkv
-    (L, B, H, K, K), fp32.  mamba_hybrid: conv (L, B, conv-1, d_inner+2n)
-    in the compute dtype, ssm (L, B, H, 64, n) fp32, and the shared
-    block's attn_k/attn_v (n_sites, B, max_len, Hk, hd), one per site."""
+    dtype — or, where ``_windowed``, k_local/v_local (n_local, B, W, Hk,
+    hd) rings of W = min(window, max_len) for the layers whose window is
+    shorter than max_len, plus k_global/v_global (n_global, B, max_len,
+    Hk, hd) for the others (local:global only).  rwkv: the recurrent
+    state, shift_tm/shift_cm (L, B, d) and wkv (L, B, H, K, K), fp32.
+    mamba_hybrid: conv (L, B, conv-1, d_inner+2n) in the compute dtype,
+    ssm (L, B, H, 64, n) fp32, and the shared block's attn_k/attn_v
+    (n_sites, B, max_len, Hk, hd), one per site."""
     check_layout(cfg)
-    if (cfg.layout in ("dense", "moe")
-            and cfg.attn_pattern in ("swa", "local_global")
-            and max_len > cfg.window):
-        raise NotImplementedError(
-            f"{cfg.name}: max_len {max_len} > window {cfg.window} needs the "
-            f"ring-buffer cache, which waits for a later slice of the port")
     device = resolve_device(device)
     dt = cfg.torch_dtype()
     zeros = lambda shape, dtype: torch.zeros(shape, dtype=dtype, device=device)
@@ -229,6 +245,14 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
             ssm=zeros((L, batch, h, ssm_lib.MAMBA_HEAD_DIM, n),
                       torch.float32),
             attn_k=zeros(kv, dt), attn_v=zeros(kv, dt))
+    elif _windowed(cfg, max_len):
+        n_local = sum(w < max_len for w in cfg.layer_windows(max_len))
+        kd = (cfg.n_kv_heads, cfg.head_dim)
+        ring = (n_local, batch, min(cfg.window, max_len)) + kd
+        cache.update(k_local=zeros(ring, dt), v_local=zeros(ring, dt))
+        if n_local < L:
+            full = (L - n_local, batch, max_len) + kd
+            cache.update(k_global=zeros(full, dt), v_global=zeros(full, dt))
     else:
         shape = (L, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
         cache.update(k=zeros(shape, dt), v=zeros(shape, dt))
@@ -294,18 +318,56 @@ def _attn_decode(layer: nn.Module, x: torch.Tensor, k_c: torch.Tensor,
     return x + _ffn(layer, rms_norm(x, layer.norm_mlp, cfg.norm_eps), cfg)[0]
 
 
+def _decode_local(layer: nn.Module, x: torch.Tensor, k_ring: torch.Tensor,
+                  v_ring: torch.Tensor, length: torch.Tensor,
+                  cfg: ModelConfig) -> torch.Tensor:
+    """A dense block whose attention decodes against its ring buffer."""
+    h = rms_norm(x, layer.norm_attn, cfg.norm_eps)
+    x = x + attn.attention_decode_ring(layer.attn, h, k_ring, v_ring, length,
+                                       cfg)
+    return x + _ffn(layer, rms_norm(x, layer.norm_mlp, cfg.norm_eps), cfg)[0]
+
+
+def _decode_windowed(model: DecoderLM, x: torch.Tensor, cache: Cache,
+                     cfg: ModelConfig) -> torch.Tensor:
+    """Decode through a windowed (ring-buffer) cache, in the JAX package's
+    layer order and cache indices.  swa: every layer attends through its
+    W-slot ring.  local:global: groups of ``local_per_global`` ring layers
+    and one global layer (window = the cache depth) against its full-depth
+    cache, then any trailing layers past the last group on rings."""
+    length = cache["length"]
+    p = cfg.local_per_global + 1
+    n_local = n_global = 0
+    for l, layer in enumerate(model.layers):
+        if "k_global" in cache and l % p == p - 1:
+            x = _attn_decode(layer, x, cache["k_global"][n_global],
+                             cache["v_global"][n_global],
+                             cache["k_global"].shape[2], length, cfg)
+            n_global += 1
+        else:
+            x = _decode_local(layer, x, cache["k_local"][n_local],
+                              cache["v_local"][n_local], length, cfg)
+            n_local += 1
+    return x
+
+
 @torch.no_grad()
 def decode_step(model: DecoderLM, token: torch.Tensor, cache: Cache,
                 cfg: ModelConfig) -> Tuple[torch.Tensor, Cache]:
     """token: (B, 1) int32.  Returns (logits (B, 1, V), the cache with
     every slot's length advanced by one and its state written in place).
-    MoE layers route the B tokens as one dispatch group.  The hybrid runs
-    its Mamba layers one step each and the shared block's decode at every
+    ``cache["length"]`` is a (B,) vector (per-slot lengths) or a 0-d
+    tensor (every row in lockstep, which stays 0-d).  MoE layers route the
+    B tokens as one dispatch group.  Windowed caches run the ring layers
+    and the global layers in the JAX package's order.  The hybrid runs its
+    Mamba layers one step each and the shared block's decode at every
     site, against that site's own KV cache."""
     dtype = cfg.torch_dtype()
     x = embed(model.embed, token, dtype)
     length = cache["length"]
-    if cfg.layout in ("dense", "moe"):
+    if cfg.layout in ("dense", "moe") and "k_local" in cache:
+        x = _decode_windowed(model, x, cache, cfg)
+    elif cfg.layout in ("dense", "moe"):
         windows = cfg.layer_windows(cache["k"].shape[2])
         for layer, k_c, v_c, window in zip(model.layers, cache["k"],
                                            cache["v"], windows):

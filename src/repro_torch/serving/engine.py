@@ -13,10 +13,14 @@ Engines report per-query energy (Wh) via the analytic H100 model
 (core.energy) — the zeus stand-in — and time-resolved per-step joules,
 split by phase (prefill is compute-bound, decode bandwidth-bound).
 
-Recurrent layouts (rwkv, mamba_hybrid) have no positional KV cache to
+Recurrent layouts (rwkv, mamba_hybrid) and windowed caches (a dense
+sliding-window or local:global stack at ``max_len`` > its window keeps
+ring buffers, no ``k`` entry) have no full-depth positional KV cache to
 take a slab at an offset, so their prompts run token-wise through
 ``serve_step`` ("decode" ticks: ``set_prefill_chunk`` clamps the chunk to
-1).  Their cache holds per-slot state (``shift_tm``/``shift_cm``/``wkv``,
+1).  The engine's lengths are per slot, so its decode attends through the
+plain ``decode_attend`` and the rings, never the decode-attention kernel
+(which takes one length for every row), as in the JAX package.  Their cache holds per-slot state (``shift_tm``/``shift_cm``/``wkv``,
 or ``conv``/``ssm`` plus the shared block's per-site KV) beside
 ``length``; the engine's own bookkeeping (``_admit``, ``_should_finish``,
 ``_meter_step``, ``_finish``) reads only ``length`` and request progress,

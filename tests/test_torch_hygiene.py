@@ -78,7 +78,7 @@ def test_chip_smoke_refuses_alone_in_a_directory(tmp_path):
 
 
 KERNELS = ("featurize", "linucb", "moe_gating", "flash_attention", "rwkv6",
-           "mamba2")
+           "mamba2", "decode_attention")
 
 
 def test_every_cuda_source_is_built_and_names_its_tpu_kernel():

@@ -55,6 +55,7 @@ ATTN_CASES = [
     (1, 100, 100, 4, 2, 24, 37, True),        # ragged S, window < S
     (1, 72, 72, 4, 1, 120, 72, True),         # hd 120 (danube), ragged S
     (1, 50, 90, 2, 2, 40, 30, False),         # non-causal window, ragged
+    (1, 96, 96, 4, 2, 256, 40, True),         # hd 256 (gemma3), window < S
 ]
 
 

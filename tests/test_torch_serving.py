@@ -200,7 +200,7 @@ def test_pool_server_run_matches_jax(equal_energy_constants):
 def test_unported_serving_options_raise():
     pcfg = get_config("granite-3-8b", **F32)
     with pytest.raises(NotImplementedError):
-        lm.init_cache(get_config("h2o-danube-3-4b", **F32), 1, 128,
+        lm.init_cache(dataclasses.replace(pcfg, layout="encdec"), 1, 128,
                       device="cpu")
     eng = ModelEngine("g", pcfg, max_len=32, device="cpu")
     router = GreenServRouter(RouterConfig(), ModelPool([eng.profile]),

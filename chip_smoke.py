@@ -11,9 +11,14 @@ Phases, in order; any failure raises and the script exits non-zero:
      attention, the RWKV6 WKV scan, the Mamba2 SSD scan and decode
      attention against their plain PyTorch versions on the card
      (featurize 1e-5, LinUCB 1e-4, gating indices exact and weights 1e-6,
-     flash one bf16 unit in bf16 and 2e-5 in fp32, causal danube with its
-     window included, zamba2's hd 112 and gemma3-12b's hd 256 at S=8192
-     with window 1024 and full; WKV at B=2 S=2048 H=32 and SSD at B=1
+     flash in bf16 on its tensor-core route at one bf16 unit plus the
+     bound of carrying p as two bf16 parts, in fp32 on its scalar route
+     at 2e-5,
+     causal danube with its window included, zamba2's hd 112 and
+     gemma3-12b's hd 256 at S=8192 with window 1024 and full, and exact
+     mask probes (q = 0, integer v: the visible rows' mean) at hd 40, 120
+     and 256 in bf16 and fp32 with windows, ragged ends and rows that see
+     nothing; WKV at B=2 S=2048 H=32 and SSD at B=1
      S=4096 H=112 N=64 in the models' dtypes with y at one bf16 unit, the
      same shapes in fp32 with a nonzero initial state at 2e-4 (WKV) and
      3e-4 (SSD), and a ragged S=100; final states fp32 at 2e-4 / 3e-4;
@@ -22,7 +27,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      ragged S, one bf16 unit in bf16 and 2e-5 in fp32) at the main paths'
      shapes,
      timed with CUDA events beside their bounds and, for flash and decode
-     attention, PyTorch's own attention call;
+     attention, PyTorch's own attention call (for flash with a boolean
+     mask and, where the mask is plain causal, with ``is_causal``);
   4. router: one 64-query stream through twin routers on the card, device
      featurize vs host featurize — arms, labels, clusters and bins must be
      identical;
@@ -38,7 +44,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      card's busy share and the top kernels;
   6. one-shot prefill: ``api.prefill`` on the four served models at full
      width (granite B=2 S=2048, danube B=1 S=6144, qwen2-moe B=2 S=2048,
-     rwkv6 B=2 S=2048) through the flash kernel at every attention layer,
+     rwkv6 B=2 S=2048) through the flash kernel at every attention layer
+     (every launch on its tensor-core route; the fp32 checks' on its
+     scalar route),
      the gating kernel at every MoE layer and the WKV kernel at every
      RWKV layer; finite logits; qwen2-moe's one-shot logits at its first
      2 layers against its chunked prefill (S=512, in bf16 and fp32) and
@@ -97,17 +105,39 @@ FEATURIZE_TOL = 1e-5           # tests/test_kernels.py's featurize tolerance
 LINUCB_TOL = 1e-4              # and its LinUCB tolerance
 GATING_TOL = 1e-6              # its gating weight tolerance (indices exact)
 FLASH_FP32_TOL = 2e-5          # its fp32 flash tolerance (atol and rtol)
-# flash in bf16, as a share of |ref| plus the output's RMS.  The kernel and
-# the plain version both accumulate in fp32 and round the output to bf16
-# once, so they differ by at most one bf16 unit in the last place, which
-# is at most 2^-7 of |ref|; the RMS term covers outputs near 0.  This is
-# far inside tests/test_kernels.py's 3e-2, which is about as large as a
+# flash in bf16, as a share of |ref| plus the output's RMS: one bf16 unit
+# in the last place (at most 2^-7 of |ref|; the RMS term covers outputs
+# near 0).  The scalar route and the plain version both accumulate in fp32
+# and round the output to bf16 once, so they differ by at most that.  The
+# tensor-core route (kernel.route "wgmma") also carries each p into the
+# product with v as two bf16 parts, hi = bf16(p) and lo = bf16(p - hi): a
+# relative error of at most 2^-16 per p, so an output moves by at most
+# 2^-16 sum_j p_j |v_j| / l, which is 2^-16 of the plain version run on
+# |v| (FLASH_P_REL below); its bf16 cases are held at FLASH_BF16_REL
+# (|ref| + RMS) + FLASH_P_REL attention_ref(q, k, |v|), a bound from the
+# design, not a fit to a measured error.  All of it is far
+# inside tests/test_kernels.py's 3e-2, which is about as large as a
 # typical output here (|out| ~ sqrt(e/n) for n visible keys: 0.03 at
 # n = 2048): a dropped kv tile moves outputs by the order of their RMS
 # and fails it.  An off-by-one of the window or the diagonal moves an
-# output by ~1/n of a value, below one bf16 unit: the fp32 causal danube
-# case holds that at FLASH_FP32_TOL.
+# output by ~1/n of a value, below that limit: the exact probes
+# (FLASH_PROBE_SHAPES) and the fp32 causal danube case hold it.
 FLASH_BF16_REL = 2.0 ** -7
+FLASH_P_REL = 2.0 ** -16
+# the exact mask probes: q = 0, so every visible p is exactly 1 (also in
+# bf16), and v integers in [-4, 4], so every path computes the mean of the
+# visible rows of v exactly and rounds it once (tests/test_torch_flash_
+# route.py pins that on the CPU); bf16 held at FLASH_BF16_REL |ref| + 1e-6,
+# fp32 at FLASH_FP32_TOL.  A leak of one position across the diagonal or
+# the window's edge moves an output by about 1/n of a value.  hd 40 (not a
+# multiple of 16, the narrow tile), 120 and 256 (the wide tile); windows,
+# ragged ends and rows past Sk + window that see nothing put edges across
+# the kv tiles of both tile configurations
+# (b, sq, sk, hq, hk, window, causal) x hd x dtype
+FLASH_PROBE_SHAPES = ((2, 333, 333, 4, 2, 77, True),
+                      (2, 200, 333, 4, 2, 150, False),
+                      (2, 333, 130, 4, 2, 64, False))
+FLASH_PROBE_HDS = (40, 120, 256)
 # bf16 vs fp32 logits of the same two layers, as a share of the fp32 logit
 # range.  bf16 keeps 8 significant bits (unit roundoff 2^-9), but with the
 # reference's init rule q and k reach magnitudes of 10-20 at d_model 4096,
@@ -304,13 +334,27 @@ def _ops_modules() -> dict:
 
 
 def reset_launches() -> None:
-    """Every wrapper's launch count to 0 (just before a path is driven)."""
+    """Every wrapper's launch count to 0 (just before a path is driven),
+    flash's count of tensor-core launches too."""
     for mod in _ops_modules().values():
         mod.launches = 0
+    _ops_modules()["flash_attention"].wgmma_launches = 0
 
 
 def read_launches() -> dict:
     return {name: mod.launches for name, mod in _ops_modules().items()}
+
+
+def check_flash_route(what: str, want: str) -> int:
+    """The flash launches since the last reset all took route ``want``:
+    "wgmma" (each one counted in ``wgmma_launches``; every bf16 launch of
+    a model path) or "scalar" (none of them; fp32).  Returns the count."""
+    flash = _ops_modules()["flash_attention"]
+    n, w = flash.launches, flash.wgmma_launches
+    if w != (n if want == "wgmma" else 0):
+        raise AssertionError(f"{what}: {w} of {n} flash launches on the "
+                             f"wgmma route, expected route {want}")
+    return n
 
 
 # ---------------------------------------------------------------------------
@@ -463,7 +507,7 @@ def visible_pairs(sq: int, sk: int, window: int, causal: bool) -> int:
 
 
 def flash_phase(dev) -> dict:
-    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention import kernel, ops
     from repro_torch.kernels.flash_attention.ref import attention_ref
 
     rng = np.random.default_rng(9)
@@ -472,6 +516,7 @@ def flash_phase(dev) -> dict:
         q, k, v = (torch.from_numpy(rng.standard_normal(shape, np.float32))
                    .to(dev, dt) for shape in ((b, sq, hq, hd), (b, sk, hk, hd),
                                               (b, sk, hk, hd)))
+        route = kernel.route(dt, hd)
         out = ops.flash_attention(q, k, v, win, causal)
         ref = attention_ref(q, k, v, win, causal).float()
         torch.cuda.synchronize()
@@ -481,6 +526,10 @@ def flash_phase(dev) -> dict:
         if dt == torch.bfloat16:
             limit, what = FLASH_BF16_REL * (ref.abs() + rms), \
                 f"{FLASH_BF16_REL} of |ref| + RMS {rms:.4g}"
+            if route == "wgmma":         # p carried as two bf16 parts
+                limit += FLASH_P_REL * attention_ref(
+                    q.float(), k.float(), v.float().abs(), win, causal)
+                what += f" + {FLASH_P_REL} of the plain version on |v|"
         else:
             limit, what = FLASH_FP32_TOL * (1 + ref.abs()), \
                 f"{FLASH_FP32_TOL} (atol and rtol)"
@@ -490,29 +539,36 @@ def flash_phase(dev) -> dict:
                                  f"{worst_ratio:.3g} of the limit {what}")
         worst = max(worst, err)
         # PyTorch's own attention call on the same inputs and mask, as the
-        # yardstick: (B, H, S, hd) layout, GQA by enable_gqa
+        # yardstick: (B, H, S, hd) layout, GQA by enable_gqa.  A boolean
+        # mask keeps it off its flash backend; where the mask is plain
+        # causal (Sq = Sk, the window covering S) is_causal puts it there,
+        # and the faster of the two is library_ms
         qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
         qp = torch.arange(sq, device=dev)[:, None]
         kp = torch.arange(sk, device=dev)[None, :]
         mask = kp > qp - win
         if causal:
             mask &= kp <= qp
-
-        def library():
-            return torch.nn.functional.scaled_dot_product_attention(
-                qt, kt, vt, attn_mask=mask, enable_gqa=True)
-
-        # a check that the yardstick computes the same function (a mask
+        yardsticks = {"mask": lambda: torch.nn.functional
+                      .scaled_dot_product_attention(qt, kt, vt,
+                                                    attn_mask=mask,
+                                                    enable_gqa=True)}
+        if causal and sq == sk and win >= sq:
+            yardsticks["is_causal"] = lambda: (
+                torch.nn.functional.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, enable_gqa=True))
+        # a check that each yardstick computes the same function (a mask
         # mistake would be of the order of the outputs), at the bf16
         # tolerance for both dtypes: its fp32 path may round through TF32
-        lib_err = float((library().transpose(1, 2).float() - ref).abs().max())
+        lib_err = max(float((fn().transpose(1, 2).float() - ref).abs().max())
+                      for fn in yardsticks.values())
         if not lib_err <= 3e-2 * max(1.0, float(ref.abs().max())):
             raise AssertionError(f"flash {name}: the library call differs "
                                  f"from the plain version by {lib_err}")
         del ref, diff, limit
         ms = cuda_ms(lambda: ops.flash_attention(q, k, v, win, causal))
         plain_ms = cuda_ms(lambda: attention_ref(q, k, v, win, causal))
-        library_ms = cuda_ms(library)
+        lib = {key: cuda_ms(fn) for key, fn in yardsticks.items()}
         pairs = visible_pairs(sq, sk, win, causal)
         n_bytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
         n_ops = 4 * hd * pairs * hq * b
@@ -521,18 +577,63 @@ def flash_phase(dev) -> dict:
         rows.append(dict(name=name, shape=(b, sq, sk, hq, hk, hd, win,
                                            causal, str(dt)),
                          err=err, ms=ms, plain_ms=plain_ms,
-                         library_ms=library_ms, bound_ms=b_ms, bound_by=b_by,
-                         pairs=pairs))
+                         library_ms=min(lib.values()), bound_ms=b_ms,
+                         bound_by=b_by, pairs=pairs))
+        causal_ms = (f", is_causal {lib['is_causal']:.6f} ms"
+                     if "is_causal" in lib else "")
         log("kernels", f"flash_attention {name} B={b} Sq={sq} Sk={sk} "
-            f"Hq={hq} Hk={hk} hd={hd} window={win} causal={causal} {dt}: "
-            f"{pairs} visible pairs per head, err {err:.3g} (output RMS "
-            f"{rms:.4g}; {worst_ratio:.3f} of the limit; library "
+            f"Hq={hq} Hk={hk} hd={hd} window={win} causal={causal} {dt}, "
+            f"route {route}: {pairs} visible pairs per head, err {err:.3g} "
+            f"(output RMS {rms:.4g}; {worst_ratio:.3f} of the limit; library "
             f"{lib_err:.3g}), kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, "
-            f"library {library_ms:.6f} ms, bound {b_ms:.6f} ms ({b_by}), "
-            f"{n_ops / ms / 1e9:.1f} TFLOP/s")
+            f"library: boolean mask {lib['mask']:.6f} ms{causal_ms}; bound "
+            f"{b_ms:.6f} ms ({b_by}), {n_ops / ms / 1e9:.1f} TFLOP/s")
         del q, k, v, qt, kt, vt, out
         torch.cuda.empty_cache()
-    return {"rows": rows, "worst": worst}
+    return {"rows": rows, "worst": max(worst, flash_probes(dev))}
+
+
+def flash_probes(dev) -> float:
+    """The exact mask probes (``FLASH_PROBE_SHAPES`` x ``FLASH_PROBE_HDS``,
+    in bf16 on the wgmma route and in fp32 on the scalar one) against the
+    plain version.  Returns the largest error."""
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    rng = np.random.default_rng(31)
+    worst = 0.0
+    for b, sq, sk, hq, hk, win, causal in FLASH_PROBE_SHAPES:
+        for hd in FLASH_PROBE_HDS:
+            k = rng.standard_normal((b, sk, hk, hd), np.float32)
+            v = rng.integers(-4, 5, (b, sk, hk, hd)).astype(np.float32)
+            for dt, route in ((torch.bfloat16, "wgmma"),
+                              (torch.float32, "scalar")):
+                q_d = torch.zeros((b, sq, hq, hd), dtype=dt, device=dev)
+                k_d, v_d = (torch.from_numpy(x).to(dev, dt) for x in (k, v))
+                label = (f"flash probe B={b} Sq={sq} Sk={sk} Hq={hq} Hk={hk} "
+                         f"hd={hd} window={win} causal={causal} {dt}")
+                reset_launches()
+                out = ops.flash_attention(q_d, k_d, v_d, win, causal)
+                check_flash_route(label, route)
+                ref = attention_ref(q_d, k_d, v_d, win, causal).float()
+                torch.cuda.synchronize()
+                diff = (out.float() - ref).abs()
+                if dt == torch.bfloat16:
+                    limit = FLASH_BF16_REL * ref.abs() + 1e-6
+                else:
+                    limit = FLASH_FP32_TOL * (1 + ref.abs())
+                ratio = float((diff / limit).max())
+                empty = int((ref.abs().amax(dim=(2, 3)) == 0).sum())
+                log("kernels", f"{label}, route {route}: max abs err "
+                    f"{float(diff.max()):.3g}, {ratio:.3f} of the limit; "
+                    f"{empty} (batch row, position) pairs with every output "
+                    f"0")
+                if not (torch.isfinite(out).all() and ratio <= 1):
+                    raise AssertionError(f"{label}: max abs err "
+                                         f"{float(diff.max())}, {ratio:.3g} "
+                                         f"of the limit")
+                worst = max(worst, float(diff.max()))
+    return worst
 
 
 def scan_errors(name: str, y, y_ref, st, st_ref, fp32_tol: float) -> tuple:
@@ -1157,7 +1258,9 @@ def moe_prefill_check(dev, model, cfg, batch) -> None:
     one, chunked = one_shot_and_chunked(dev, view, cut, toks, chunk)
     gap_c = logit_gap(chunked, one)
     m32, cut32 = upcast(dev, view, cut)
+    reset_launches()
     one, chunked = one_shot_and_chunked(dev, m32, cut32, toks, chunk)
+    check_flash_route(f"{MOE_ARCH} fp32, first {n} layers", "scalar")
     gap_32 = logit_gap(chunked, one)
     del m32, one, chunked
     torch.cuda.empty_cache()
@@ -1235,7 +1338,9 @@ def recurrent_prefill_check(dev, arch, model, cfg, batch) -> None:
         row = {"bf16": logit_gap(tw, one)}
         if not full:
             m32, cut32 = upcast(dev, view, cut)
+            reset_launches()
             one, tw = one_shot_and_token_wise(dev, m32, cut32, toks)
+            check_flash_route(f"{arch} fp32, first {depth} layers", "scalar")
             row["fp32"] = logit_gap(tw, one)
             del m32
         fast = api.prefill(view, batch, cut)
@@ -1304,6 +1409,9 @@ def drive_prefill(dev, arch, model, cfg, b: int, s: int, rng) -> tuple:
     if launches != want:
         raise AssertionError(f"prefill {arch}: launches {launches}, "
                              f"expected {want}")
+    # every model prefill here runs in bf16: the tensor-core flash kernel
+    route = (" (flash: all on the wgmma route)"
+             if check_flash_route(f"prefill {arch}", "wgmma") else "")
     if (tuple(logits.shape) != (b, cfg.vocab_size)
             or not torch.isfinite(logits).all()):
         raise AssertionError(f"prefill {arch}: logits of shape "
@@ -1316,7 +1424,7 @@ def drive_prefill(dev, arch, model, cfg, b: int, s: int, rng) -> tuple:
     torch.cuda.synchronize()
     sec = (time.perf_counter() - t) / reps
     log("prefill", f"{arch} B={b} S={s}: launches "
-        f"{ {k: v for k, v in launches.items() if v} }; logits "
+        f"{ {k: v for k, v in launches.items() if v} }{route}; logits "
         f"{tuple(logits.shape)} finite; {sec * 1e3:.3f} ms per prefill "
         f"({b * s / sec:.1f} prompt tok/s; first call "
         f"{first_s * 1e3:.3f} ms)")
@@ -1661,6 +1769,10 @@ def gemma3_checks(dev, model, cfg, cache) -> None:
             lv, lc = layers_view(m, c, [index], local_per_global=lpg)
             gaps, launches, sec, fed, toks = feed_gaps(dev, lv, lc, feed,
                                                        depth)
+            # the one-shot forward of the feed: bf16 on the tensor cores,
+            # fp32 on the scalar kernel
+            check_flash_route(f"{GEMMA_ARCH} {what} {index}, {label}",
+                              "wgmma" if label == "bf16" else "scalar")
             kv_gap = view_cache_gap(lv, lc, fed, toks)
             del fed
             want = feed if what == "global layer" else 0

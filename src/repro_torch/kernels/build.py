@@ -38,6 +38,8 @@ _SIGNATURES = {
     "moe_gating_launch": (_P, _P, _P, _I, _I, _I, _P),
     "flash_attention_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                _I, _I, _P),
+    "flash_attention_wgmma_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                     _I, _I, _P),
     "rwkv6_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "mamba2_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                       _P),

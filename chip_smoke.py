@@ -23,12 +23,17 @@ Phases, in order; any failure raises and the script exits non-zero:
      same shapes in fp32 with a nonzero initial state at 2e-4 (WKV) and
      3e-4 (SSD), and a ragged S=100; final states fp32 at 2e-4 / 3e-4;
      decode attention at gemma3's global layers B=4 S=32768 16/8 hd 256,
-     granite's and zamba2's shapes, a short window, cache_len 5 and a
-     ragged S, one bf16 unit in bf16 and 2e-5 in fp32) at the main paths'
-     shapes,
+     granite's and zamba2's shapes, a short window, cache_len 5, a ragged
+     S, gemma3's ring layers (S=1024, timed only: they attend in plain
+     code) and a visible range off the kernel's tile grid, one bf16 unit
+     in bf16 and 2e-5 in fp32, with the kernel's registers, resident
+     blocks per SM, grid and waves) at the main paths' shapes,
      timed with CUDA events beside their bounds and, for flash and decode
      attention, PyTorch's own attention call (for flash with a boolean
-     mask and, where the mask is plain causal, with ``is_causal``);
+     mask and, where the mask is plain causal, with ``is_causal``); the
+     gating kernel also timed at its launcher, at the wrapper and on the
+     card (the profiler's kernel time), beside ``torch.topk`` + softmax,
+     and decode attention on the card too;
   4. router: one 64-query stream through twin routers on the card, device
      featurize vs host featurize — arms, labels, clusters and bins must be
      identical;
@@ -231,7 +236,13 @@ FLASH_CASES = (
 # decode attention: gemma3's global layers in lockstep decode (the main
 # path's shape: B=4 at cache_len 32705 of 32768, full window), the same in
 # fp32, granite's and zamba2's shapes, a window shorter than cache_len,
-# cache_len 5 (all but the first split see nothing) and a ragged S
+# cache_len 5 (one tile: the other splits of each (row, kv head) see
+# nothing), a ragged S, gemma3's ring layers as attention_decode_ring
+# holds them (a full ring of its window 1024; timed, not dispatched to),
+# and gemma3's shape with a visible range that starts and ends off the
+# kernel's tile grid (the kernel cuts its splits from the visible range,
+# so cache_len always ends the last split: its last tile is ragged,
+# loaded row by row)
 # (name, b, s, hq, hk, hd, cache_len, window, dtype)
 DECODE_CASES = (
     (GEMMA_ARCH, 4, 32768, 16, 8, 256, 32705, 32768, torch.bfloat16),
@@ -242,6 +253,8 @@ DECODE_CASES = (
     ("window 1024", 4, 32768, 16, 8, 256, 32705, 1024, torch.float32),
     ("cache_len 5", 4, 32768, 16, 8, 256, 5, 32768, torch.float32),
     ("ragged S", 2, 5000, 8, 2, 128, 4999, 5000, torch.float32),
+    (GEMMA_ARCH + " ring", 4, 1024, 16, 8, 256, 1024, 1024, torch.bfloat16),
+    ("ragged window", 4, 32768, 16, 8, 256, 16389, 8195, torch.bfloat16),
 )
 # fp32 cases at tests/test_kernels.py's 2e-5 (atol and rtol); bf16 cases at
 # one bf16 unit, as flash (FLASH_BF16_REL): test_kernels.py's 3e-2 is about
@@ -309,6 +322,34 @@ def cuda_ms(fn, n: int = 200, budget_s: float = 0.5) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / n
+
+
+def device_ms(fn, kernel_name: str, n: int = 30, tries: int = 3):
+    """Mean milliseconds per launch that the card spent in a kernel whose
+    name holds ``kernel_name``, from torch.profiler's device activity over
+    ``n`` calls of ``fn`` after a warm-up: the kernel's own time, without
+    the host's time to issue it.  The mean is over the launches that the
+    profiler recorded: it can drop some or all of a session's device
+    records, so a session that recorded none is run again, up to
+    ``tries`` times, and then this returns None (not measured)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        seen = [e for e in prof.key_averages() if kernel_name in e.key]
+        count = sum(e.count for e in seen)
+        if count:
+            return sum(e.self_device_time_total for e in seen) / 1e3 / count
+    return None
+
+
+def ms_text(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.6f} ms"
 
 
 def bound(n_bytes: float, n_ops: float, flops: float = FP32_FLOPS) -> tuple:
@@ -460,7 +501,14 @@ def linucb_phase(dev) -> dict:
 
 
 def gating_phase(dev) -> dict:
-    from repro_torch.kernels.moe_gating import ops
+    """The gating kernel against its plain version.  Timed three ways: the
+    launcher (``kernel.topk_gating_fwd``: the ctypes call and two
+    allocations, as the router kernels are timed), the wrapper the main
+    path calls (``ops.topk_gating``: also the fp32 cast and
+    ``.contiguous()``), and, for the untied rows, the kernel's own device
+    time from the profiler; beside them ``torch.topk`` then ``softmax``,
+    two library calls that together compute the same function."""
+    from repro_torch.kernels.moe_gating import kernel, ops
     from repro_torch.kernels.moe_gating.ref import topk_gating_ref
 
     rng = np.random.default_rng(13)
@@ -485,15 +533,28 @@ def gating_phase(dev) -> dict:
             raise AssertionError(f"gating T={t}: max abs err {err} > "
                                  f"{GATING_TOL}")
         worst = max(worst, err)
-        ms = cuda_ms(lambda: ops.topk_gating(logits, k))
+        ms = cuda_ms(lambda: kernel.topk_gating_fwd(logits, k))
+        wrapper_ms = cuda_ms(lambda: ops.topk_gating(logits, k))
+        dev_ms = (None if tied else
+                  device_ms(lambda: kernel.topk_gating_fwd(logits, k),
+                            "moe_gating_kernel"))
+
+        def topk_softmax():
+            top = torch.topk(logits, k, dim=-1)
+            return torch.softmax(top.values, dim=-1), top.indices
+
+        topk_ms = cuda_ms(topk_softmax)
         plain_ms = cuda_ms(lambda: topk_gating_ref(logits, k))
         # bytes: the logits read once, weights and indices written once
         b_ms, b_by = bound(t * e * 4 + t * k * 8, 0)
         rows.append(dict(t=t, tied=tied, err=err, ms=ms, plain_ms=plain_ms,
                          bound_ms=b_ms, bound_by=b_by))
+        on_card = "" if tied else f", device {ms_text(dev_ms)}"
         log("kernels", f"moe_gating T={t} E={e} k={k}{' tied' if tied else ''}"
-            f": indices equal, weight err {err:.3g}, kernel {ms:.6f} ms, "
-            f"plain {plain_ms:.6f} ms, bound {b_ms:.6f} ms ({b_by})")
+            f": indices equal, weight err {err:.3g}, launcher {ms:.6f} ms"
+            f"{on_card}, wrapper {wrapper_ms:.6f} ms, topk + softmax "
+            f"{topk_ms:.6f} ms, plain {plain_ms:.6f} ms, bound {b_ms:.6f} ms "
+            f"({b_by})")
     return {"rows": rows, "worst": worst}
 
 
@@ -763,7 +824,7 @@ def ssd_phase(dev) -> dict:
 
 
 def decode_phase(dev) -> dict:
-    from repro_torch.kernels.decode_attention import ops
+    from repro_torch.kernels.decode_attention import kernel, ops
     from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 
     rng = np.random.default_rng(37)
@@ -809,6 +870,8 @@ def decode_phase(dev) -> dict:
                                  f"{lib_err}")
         del ref, diff, limit
         ms = cuda_ms(lambda: ops.decode_attention(q, k, v, w, cl))
+        dev_ms = device_ms(lambda: ops.decode_attention(q, k, v, w, cl),
+                           "decode_attention_kernel")
         plain_ms = cuda_ms(lambda: decode_attention_ref(q, k, v, w, cl))
         library_ms = cuda_ms(library)
         # what this data needs: q read and the output written once, and of
@@ -824,13 +887,21 @@ def decode_phase(dev) -> dict:
                                            str(dt)),
                          err=err, ms=ms, plain_ms=plain_ms,
                          library_ms=library_ms, bound_ms=b_ms, bound_by=b_by))
+        occ, lay = kernel.plan(q, k)
+        # a wave: every SM holding as many blocks as the layout lets it
+        per_sm = min(occ.blocks_per_sm, kernel.MAX_BLOCKS_PER_SM)
+        waves = lay.blocks / (occ.n_sm * per_sm)
         log("kernels", f"decode_attention {name} B={b} S={s} Hq={hq} Hk={hk} "
             f"hd={hd} cache_len={clen} window={win} {dt}: {n_vis} visible "
             f"positions, err {err:.3g} (output RMS {rms:.4g}; {ratio:.3f} of "
             f"the limit; library "
-            f"{lib_err:.3g}), kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, "
-            f"library {library_ms:.6f} ms, bound {b_ms:.6f} ms ({b_by}), "
-            f"{n_bytes / ms / 1e6:.1f} GB/s")
+            f"{lib_err:.3g}), kernel {ms:.6f} ms (device {ms_text(dev_ms)}), "
+            f"plain {plain_ms:.6f} ms, library {library_ms:.6f} ms, bound "
+            f"{b_ms:.6f} ms ({b_by}), {n_bytes / ms / 1e6:.1f} GB/s; "
+            f"{occ.registers} registers a thread, {occ.blocks_per_sm} "
+            f"resident blocks per SM ({per_sm} used) of {occ.n_sm} SMs, grid "
+            f"{lay.blocks} ({waves:.3f} waves of {per_sm} an SM), "
+            f"{lay.n_split} splits of {lay.tiles} {lay.tile}-position tiles")
         del q, k, v, qt, kt, vt, out
         torch.cuda.empty_cache()
     return {"rows": rows, "worst": worst}

@@ -24,6 +24,7 @@ import torch
 
 from repro_torch.core.residency import TransferLedger
 from repro_torch.core.types import RouterConfig
+from repro_torch.device import resolve_device
 from repro_torch.kernels.linucb import linucb_scores as linucb_scores_kernel
 
 NEG_INF = -1e30
@@ -58,7 +59,10 @@ class BanditState(NamedTuple):
 
 
 def init_state(config: RouterConfig, n_arms: int,
-               device: torch.device = torch.device("cpu")) -> BanditState:
+               device=None) -> BanditState:
+    """A fresh state for ``n_arms`` live arms on ``device`` (None: the
+    card, see ``resolve_device``)."""
+    device = resolve_device(device)
     m, d = config.max_arms, config.context_dim
     if n_arms > m:
         raise ValueError(f"n_arms={n_arms} exceeds max_arms={m}")
@@ -128,13 +132,13 @@ def sherman_morrison_update(state: BanditState, arm: int, x: torch.Tensor,
 
 
 class BanditPolicy:
-    """Thin stateful wrapper holding a BanditState on ``device``."""
+    """Thin stateful wrapper holding a BanditState on ``device`` (None: the
+    card, see ``resolve_device``)."""
 
-    def __init__(self, config: RouterConfig, n_arms: int,
-                 device: torch.device = torch.device("cpu")):
+    def __init__(self, config: RouterConfig, n_arms: int, device=None):
         check_supported(config)
         self.config = config
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.state = init_state(config, n_arms, self.device)
         # residency audit: BanditState lives on the device; the ledger
         # counts the deliberate host syncs (state_dict / load /

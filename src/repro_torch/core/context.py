@@ -33,7 +33,7 @@ import torch
 from repro_torch.core.embedding import EmbeddingModel, tokenize
 from repro_torch.core.residency import TransferLedger
 from repro_torch.core.types import ContextVector, N_TASKS, RouterConfig
-from repro_torch.device import sync
+from repro_torch.device import resolve_device, sync
 from repro_torch.kernels.featurize.ops import pad_pow2
 
 # ---------------------------------------------------------------------------
@@ -52,16 +52,15 @@ class TaskClassifier:
 
     The instruction text is taken from the first lines of the prompt,
     embedded, and classified into one of N_TASKS labels.  ``w``/``b`` live
-    on ``device``.
+    on ``device`` (None: the card, see ``resolve_device``).
     """
 
     def __init__(self, embedder: EmbeddingModel, n_classes: int = N_TASKS,
-                 instr_lines: int = 2, seed: int = 0,
-                 device: torch.device = torch.device("cpu")):
+                 instr_lines: int = 2, seed: int = 0, device=None):
         self.embedder = embedder
         self.n_classes = n_classes
         self.instr_lines = instr_lines
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         rng = np.random.default_rng(seed)
         w0 = (rng.standard_normal((embedder.dim, n_classes)) * 0.01)
         self.w = torch.tensor(w0, dtype=torch.float32, device=self.device)
@@ -149,13 +148,12 @@ class OnlineKMeans:
     ``transfers`` counts every actual upload/download of this state.
     """
 
-    def __init__(self, k: int, dim: int,
-                 device: torch.device = torch.device("cpu")):
+    def __init__(self, k: int, dim: int, device=None):
         if k < 1:
             raise ValueError("k must be >= 1")
         self.k = k
         self.dim = dim
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self._h_centroids = np.zeros((k, dim), dtype=np.float32)
         self._h_counts = np.zeros((k,), dtype=np.int64)
         self._h_init = 0  # first K distinct embeddings seed the centroids
@@ -487,13 +485,12 @@ class FleschComplexity:
 class ContextGenerator:
     """Combines the three extractors into x_t ∈ R^d (d = N_tasks+K+N_bins+1).
     Device-side state (classifier weights, the k-means device copy) lives
-    on ``device``."""
+    on ``device`` (None: the card, see ``resolve_device``)."""
 
     def __init__(self, config: RouterConfig,
-                 embedder: Optional[EmbeddingModel] = None,
-                 device: torch.device = torch.device("cpu")):
+                 embedder: Optional[EmbeddingModel] = None, device=None):
         self.config = config
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.embedder = embedder or EmbeddingModel()
         self.task_classifier = TaskClassifier(
             self.embedder, n_classes=config.n_tasks, seed=config.seed,

@@ -6,9 +6,10 @@ and the CUDA stream cross as ``c_void_p``, and every entry point returns
 its launch's ``cudaError_t``.  The build happens at first use, one
 ``nvcc`` process per source started together, into ``build/kernels/`` at
 the root of the checkout (listed in ``.gitignore``), under a name carrying
-the hash of the sources and flags: a changed source is rebuilt, an
-unchanged one is loaded as it is.  Nothing here runs at import time — a
-CPU-only host imports every module of the package without ``nvcc``.
+the hash of the sources, the headers they include (``csrc/*.cuh``) and the
+flags: a changed source or header is rebuilt, an unchanged one is loaded
+as it is.  Nothing here runs at import time — a CPU-only host imports
+every module of the package without ``nvcc``.
 """
 from __future__ import annotations
 
@@ -25,6 +26,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("featurize.cu", "linucb.cu", "moe_gating.cu",
            "flash_attention.cu", "rwkv6.cu", "mamba2.cu",
            "decode_attention.cu")
+HEADERS = ("tma.cuh",)          # included by sources; hashed with them
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
@@ -43,8 +45,9 @@ _SIGNATURES = {
     "rwkv6_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "mamba2_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                       _P),
-    "decode_attention_launch": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                _I, _I, _I, _I, _P),
+    "decode_attention_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                _I, _I, _I, _I, _I, _P),
+    "decode_attention_occupancy": (_I, _I, _I, _I, _P),
 }
 
 
@@ -64,7 +67,7 @@ def find_nvcc() -> str:
 
 def source_hash() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]

@@ -99,12 +99,13 @@
 //     214 KB and twice the accumulators at 64 rows, so it takes q tiles of
 //     32 rows: 172.5 KB, one block per SM, 2 x 16 accumulators a thread;
 //   * ragged Sq and Sk are masked in the kernel (no divisor-picking).
-#include <cuda.h>            // CUtensorMap and its enums; no libcuda link:
-#include <cuda_bf16.h>       // the encoder comes from the runtime
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cmath>
 #include <cstdint>
+
+#include "tma.cuh"           // mbarriers and the tensor-map encoder
 
 namespace {
 
@@ -397,30 +398,6 @@ struct WgTile {
     return kBarOff + 8 + 8 * (kStageBars * stage + which);
   }
 };
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
-               "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-                   bar), "r"(bytes) : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
-               : "memory");
-}
-// until the phase of parity `parity` has completed
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n\t.reg .pred p;\n\t"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
-        "selp.u32 %0, 1, 0, p;\n\t}"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-  } while (!done);
-}
 
 // one box of `map` at (column, head, position, batch row) into dst,
 // completing on bar
@@ -865,7 +842,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
       mbar_init(smem + C::bar(s, kKEmpty), kConsumers * kWarpgroup);
       mbar_init(smem + C::bar(s, kVEmpty), kConsumers * kWarpgroup);
     }
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    mbar_init_fence();
   }
   __syncthreads();
 
@@ -881,32 +858,6 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                            causal, k_lo, n_tiles, scale_log2,
                            out);
   }
-}
-
-using TensorMapEncode = CUresult (*)(
-    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
-    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
-    CUtensorMapFloatOOBfill);
-
-// libcuda's cuTensorMapEncodeTiled, looked up through the runtime (null
-// where libcuda lacks it)
-TensorMapEncode tensor_map_encode() {
-  static const TensorMapEncode fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<TensorMapEncode>(p)
-               : nullptr;
-  }();
-  return fn;
 }
 
 // A map over a contiguous bf16 (batch, seq, heads, hd) tensor as the 4-d

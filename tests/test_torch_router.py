@@ -22,8 +22,9 @@ from repro.core.types import ModelProfile as JaxModelProfile
 from repro.core.types import Query as JaxQuery
 from repro.core.types import RouterConfig as JaxRouterConfig
 from repro.data.stream import labeled_sample, make_stream
-from repro_torch.core.bandits import BanditPolicy
+from repro_torch.core.bandits import BanditPolicy, init_state
 from repro_torch.core.context import (ContextGenerator, OnlineKMeans,
+                                      TaskClassifier,
                                       flesch_score_bin_device,
                                       kmeans_assign_batch,
                                       kmeans_update_scan)
@@ -93,7 +94,7 @@ def test_kmeans_scan_equals_jax():
     np.testing.assert_array_equal(pn.numpy(), np.asarray(jn))
     np.testing.assert_allclose(pc.numpy(), np.asarray(jc), atol=1e-6)
     # and the device rows replay the host Eq. 10 updates
-    km, km_dev = OnlineKMeans(k, 16), OnlineKMeans(k, 16)
+    km, km_dev = OnlineKMeans(k, 16, "cpu"), OnlineKMeans(k, 16, "cpu")
     host = [km.update(e) for e in embs[:37]]
     assert host == pcl.numpy()[:37].tolist()
     assert host == km_dev.update_batch_device(embs[:37]).tolist()
@@ -312,3 +313,31 @@ def test_classifier_fit_learns_the_tasks():
     ctx = ContextGenerator(RouterConfig(), device="cpu")
     texts, labels = labeled_sample(n_per_task=8, seed=1)
     assert ctx.task_classifier.fit(texts, labels, steps=100) > 0.9
+
+
+# the router's public constructors, each taking ``device``
+ROUTER_CONSTRUCTORS = {
+    "init_state": lambda **kw: init_state(RouterConfig(), 3, **kw),
+    "BanditPolicy": lambda **kw: BanditPolicy(RouterConfig(), 3, **kw),
+    "TaskClassifier": lambda **kw: TaskClassifier(EmbeddingModel(), **kw),
+    "OnlineKMeans": lambda **kw: OnlineKMeans(4, 16, **kw),
+    "ContextGenerator": lambda **kw: ContextGenerator(RouterConfig(), **kw),
+}
+
+
+@pytest.mark.parametrize("name", sorted(ROUTER_CONSTRUCTORS))
+def test_router_constructors_default_to_the_card(name, monkeypatch):
+    """``device=None`` means the card, as for the model API: with no CUDA
+    device visible a constructor called without a device raises instead
+    of quietly running on the CPU, and ``device="cpu"`` runs there."""
+    make = ROUTER_CONSTRUCTORS[name]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make()
+    made = make(device="cpu")
+    tensors = ([made.A, made.b] if name == "init_state" else
+               [made.state.A] if name == "BanditPolicy" else
+               [made.w] if name == "TaskClassifier" else
+               list(made.device_state()) if name == "OnlineKMeans" else
+               [made.task_classifier.w, *made.kmeans.device_state()])
+    assert all(t.device.type == "cpu" for t in tensors)

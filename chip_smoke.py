@@ -21,7 +21,13 @@ Phases, in order; any failure raises and the script exits non-zero:
      nothing; WKV at B=2 S=2048 H=32 and SSD at B=1
      S=4096 H=112 N=64 in the models' dtypes with y at one bf16 unit, the
      same shapes in fp32 with a nonzero initial state at 2e-4 (WKV) and
-     3e-4 (SSD), and a ragged S=100; final states fp32 at 2e-4 / 3e-4;
+     3e-4 (SSD), a ragged S=100, S=1 and S=37, WKV with logw = -1e30
+     inside a chunk and across its tiles and ends, SSD at N = 16, 32 and
+     128; final states fp32 at 2e-4 / 3e-4; each scan row with its
+     bytes bound, the per-token form's operations bound beside it, the
+     kernel's registers, spills, shared memory, resident blocks per SM,
+     grid and waves, and a check that the scan kernels' code holds
+     tensor-core instructions (cuobjdump -sass);
      decode attention at gemma3's global layers B=4 S=32768 16/8 hd 256,
      granite's and zamba2's shapes, a short window, cache_len 5, a ragged
      S, gemma3's ring layers (S=1024, timed only: they attend in plain
@@ -285,18 +291,37 @@ GEMMA_ENGINE_MAX_LEN = 2048
 GATING_T = (4, 32, 4096)       # decode tick, chunk tick (4 x 8), a prefill
 # WKV shapes: rwkv6's prefill (B, S, H), its dtypes (r, k, v bf16; logw, u
 # and the zero initial state fp32, as forward_hidden passes them), then
-# the same in fp32 with a nonzero initial state, then a ragged S
-# (name, b, s, h, dtype, initial state)
-WKV_CASES = ((RWKV_ARCH, 2, 2048, 32, torch.bfloat16, "zeros"),
-             ("fp32", 2, 2048, 32, torch.float32, "random"),
-             ("ragged", 1, 100, 3, torch.float32, "random"))
+# the same in fp32 with a nonzero initial state, then a ragged S, S = 1
+# and S = 37 (one ragged chunk), and a row with logw = -1e30 moved
+# mid-sequence: inside a chunk, across the kernel's 8-token decay blocks
+# and 16-token tiles, and across a chunk's end.  Every row also has -1e30
+# at tokens 0-3 of head 0, channels 0-7.
+# (name, b, s, h, dtype, initial state, further (tokens, channels) at
+# -1e30)
+WKV_CASES = ((RWKV_ARCH, 2, 2048, 32, torch.bfloat16, "zeros", ()),
+             ("fp32", 2, 2048, 32, torch.float32, "random", ()),
+             ("ragged", 1, 100, 3, torch.float32, "random", ()),
+             ("S=1", 2, 1, 3, torch.bfloat16, "random", ()),
+             ("S=37", 1, 37, 4, torch.float32, "random", ()),
+             ("-1e30 mid-sequence", 1, 300, 4, torch.float32, "random",
+              ((slice(100, 103), slice(0, 8)),
+               (slice(134, 139), slice(8, 24)),
+               (slice(142, 146), slice(40, 48)),
+               (slice(190, 194), slice(0, 64)))))
 # SSD shapes: zamba2's prefill (B, S, H, N) in its dtypes (x, B, C bf16;
 # dt and A fp32; no initial state, as mamba_prefill passes it), the same
-# in fp32 with a nonzero initial state, then a ragged S
+# in fp32 with a nonzero initial state, then a ragged S, S = 1, S = 37
+# (one ragged chunk), and the other state sizes the kernel takes at
+# ragged S (N = 128 in fp32 takes the half-head layout)
 # (name, b, s, h, n, dtype, initial state)
 SSD_CASES = ((HYBRID_ARCH, 1, 4096, 112, 64, torch.bfloat16, None),
              ("fp32", 1, 4096, 112, 64, torch.float32, "random"),
-             ("ragged", 2, 100, 3, 64, torch.float32, "random"))
+             ("ragged", 2, 100, 3, 64, torch.float32, "random"),
+             ("S=1", 2, 1, 3, 64, torch.bfloat16, "random"),
+             ("S=37", 1, 37, 5, 64, torch.float32, "random"),
+             ("N=16", 1, 77, 2, 16, torch.bfloat16, None),
+             ("N=32", 1, 130, 2, 32, torch.float32, "random"),
+             ("N=128", 1, 70, 2, 128, torch.float32, "random"))
 
 
 def log(phase: str, msg: str) -> None:
@@ -723,13 +748,24 @@ def scan_errors(name: str, y, y_ref, st, st_ref, fp32_tol: float) -> tuple:
     return err, max(ratios)
 
 
+def scan_layout_text(info, blocks: int) -> str:
+    """A scan kernel's resources as the card reports them, its grid and the
+    waves that grid takes (every SM holding as many blocks as fit)."""
+    waves = blocks / (info.n_sm * max(info.blocks_per_sm, 1))
+    return (f"{info.registers} registers a thread, {info.local_bytes} "
+            f"bytes spilled, {info.static_smem + info.dynamic_smem} bytes "
+            f"of shared memory a block, {info.threads} threads, "
+            f"{info.blocks_per_sm} resident blocks per SM of {info.n_sm} "
+            f"SMs, grid {blocks} ({waves:.3f} waves)")
+
+
 def wkv_phase(dev) -> dict:
-    from repro_torch.kernels.rwkv6 import ops
+    from repro_torch.kernels.rwkv6 import kernel, ops
     from repro_torch.kernels.rwkv6.ref import wkv_ref
 
     rng = np.random.default_rng(23)
     kd, rows, worst = 64, [], 0.0
-    for name, b, s, h, dt, init in WKV_CASES:
+    for name, b, s, h, dt, init, dead in WKV_CASES:
         shape = (b, s, h, kd)
         r, k, v = (torch.from_numpy(rng.standard_normal(shape, np.float32)
                                     * 0.5).to(dev, dt) for _ in range(3))
@@ -739,6 +775,8 @@ def wkv_phase(dev) -> dict:
         logw = -np.exp(rng.uniform(-8.0, -4.0, shape)
                        + rng.standard_normal(shape))
         logw[:, :4, 0, :8] = -1e30
+        for toks, chans in dead:
+            logw[:, toks, 0, chans] = -1e30
         logw = torch.from_numpy(logw.astype(np.float32)).to(dev)
         u = torch.from_numpy(rng.standard_normal((h, kd), np.float32)
                              * 0.5).to(dev)
@@ -753,29 +791,42 @@ def wkv_phase(dev) -> dict:
         err, ratio = scan_errors(label, y, y_ref, st, st_ref, WKV_FP32_TOL)
         worst = max(worst, err)
         ms = cuda_ms(lambda: ops.wkv(r, k, v, logw, u, s0))
+        dev_ms = (device_ms(lambda: ops.wkv(r, k, v, logw, u, s0),
+                            "wkv_kernel") if s >= 2048 else None)
         plain_ms = cuda_ms(lambda: wkv_ref(r, k, v, logw, u, s0))
         # bytes: r, k, v, logw, u and s0 read once, y and the state
-        # written once; operations per token and head: r.S (2 K^2), the
-        # decay-and-add update (3 K^2), the bonus sum r.u.k and its product
-        # with v (5 K) and exp(logw) (K)
+        # written once.  Operations of the chunked form (chunks of L = 64)
+        # per token and head, on the bf16 tensor cores: the attention
+        # within the chunk and its product with v (L K each, the lower
+        # half), r S and the state update (2 K^2 each).  Beside it, the
+        # per-token form's fp32 operations (r S 2 K^2, the decay-and-add
+        # update 3 K^2, the bonus 5 K, exp(logw) K), the bound the
+        # per-token kernel was held to
         n_bytes = ((3 + 1) * r.numel() * r.element_size() + logw.numel() * 4
                    + u.numel() * 4 + 2 * s0.numel() * 4)
-        n_ops = b * s * h * (5 * kd * kd + 6 * kd)
-        b_ms, b_by = bound(n_bytes, n_ops)
+        n_ops = b * s * h * (2 * kernel.CHUNK * kd + 4 * kd * kd)
+        b_ms, b_by = bound(n_bytes, n_ops, BF16_FLOPS)
+        tok_ms, _ = bound(0, b * s * h * (5 * kd * kd + 6 * kd))
         rows.append(dict(name=name, shape=(b, s, h, kd, str(dt)), err=err,
-                         ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                         bound_by=b_by))
-        log("kernels", f"rwkv6 {label} B={b} S={s} H={h} K={kd} s0={init}: "
-            f"err {err:.3g} ({ratio:.3f} of the limit), kernel {ms:.6f} ms, "
-            f"plain {plain_ms:.6f} ms, bound {b_ms:.6f} ms ({b_by}), "
-            f"{n_ops / ms / 1e9:.1f} GFLOP/s")
+                         ms=ms, dev_ms=dev_ms, plain_ms=plain_ms,
+                         bound_ms=b_ms, bound_by=b_by, token_ops_ms=tok_ms))
+        lay = kernel.layout(b, h, r.element_size())
+        info = kernel.info(r.device.index, kernel.DTYPE_CODES[dt])
+        log("kernels", f"rwkv6 {label} B={b} S={s} H={h} K={kd} s0={init}"
+            f"{' -1e30 mid-sequence' if dead else ''}: err {err:.3g} "
+            f"({ratio:.3f} of the limit), kernel {ms:.6f} ms (device "
+            f"{ms_text(dev_ms)}), plain {plain_ms:.6f} ms, bound "
+            f"{b_ms:.6f} ms ({b_by}; {n_bytes / 1e6:.1f} MB, {b_ms / ms:.3f} "
+            f"of it), the per-token form's fp32 operations {tok_ms:.6f} ms; "
+            f"{n_bytes / ms / 1e6:.1f} GB/s; "
+            f"{scan_layout_text(info, lay.blocks)}")
         del r, k, v, logw, y, y_ref
         torch.cuda.empty_cache()
     return {"rows": rows, "worst": worst}
 
 
 def ssd_phase(dev) -> dict:
-    from repro_torch.kernels.mamba2 import ops
+    from repro_torch.kernels.mamba2 import kernel, ops
     from repro_torch.kernels.mamba2.ref import ssd_ref
 
     rng = np.random.default_rng(29)
@@ -802,25 +853,74 @@ def ssd_phase(dev) -> dict:
         err, ratio = scan_errors(label, y, y_ref, st, st_ref, SSD_FP32_TOL)
         worst = max(worst, err)
         ms = cuda_ms(lambda: ops.ssd(x, dts, B, C, A, h0))
+        dev_ms = (device_ms(lambda: ops.ssd(x, dts, B, C, A, h0),
+                            "ssd_kernel") if s >= 4096 else None)
         plain_ms = cuda_ms(lambda: ssd_ref(x, dts, B, C, A, h0))
         # bytes: x, dt, B, C, A and h0 read once, y and the state written
-        # once; operations per token and head: exp(dt A) (2), dt x (P),
-        # the decay-and-add update (3 P N) and C.h (2 P N)
+        # once.  Operations of the chunked form (chunks of L = 64) per
+        # token and head, on the bf16 tensor cores: M x (L P, the lower
+        # half), C B^T (L P, its share of a head), C H^T and the state
+        # update (2 N P each).  Beside it, the per-token form's fp32
+        # operations (exp(dt A) 2, dt x P, the decay-and-add update 3 P N,
+        # C.h 2 P N), the bound the per-token kernel was held to
         n_bytes = (2 * x.numel() * x.element_size() + dts.numel() * 4
                    + 2 * B.numel() * B.element_size() + A.numel() * 4
                    + (1 if h0 is None else 2) * b * h * p * n * 4)
-        n_ops = b * s * h * (5 * p * n + p + 2)
-        b_ms, b_by = bound(n_bytes, n_ops)
+        n_ops = b * s * h * (2 * kernel.CHUNK * p + 4 * n * p)
+        b_ms, b_by = bound(n_bytes, n_ops, BF16_FLOPS)
+        tok_ms, _ = bound(0, b * s * h * (5 * p * n + p + 2))
         rows.append(dict(name=name, shape=(b, s, h, p, n, str(dt)), err=err,
-                         ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                         bound_by=b_by))
+                         ms=ms, dev_ms=dev_ms, plain_ms=plain_ms,
+                         bound_ms=b_ms, bound_by=b_by, token_ops_ms=tok_ms))
+        lay = kernel.layout(b, h, n, x.element_size())
+        info = kernel.info(x.device.index, kernel.DTYPE_CODES[dt], n,
+                           lay.cols)
         log("kernels", f"mamba2 {label} B={b} S={s} H={h} P={p} N={n} "
             f"h0={init}: err {err:.3g} ({ratio:.3f} of the limit), kernel "
-            f"{ms:.6f} ms, plain {plain_ms:.6f} ms, bound {b_ms:.6f} ms "
-            f"({b_by}), {n_ops / ms / 1e9:.1f} GFLOP/s")
+            f"{ms:.6f} ms (device {ms_text(dev_ms)}), plain {plain_ms:.6f} "
+            f"ms, bound {b_ms:.6f} ms ({b_by}; {n_bytes / 1e6:.1f} MB, "
+            f"{b_ms / ms:.3f} of it), the per-token form's fp32 operations "
+            f"{tok_ms:.6f} ms; {n_bytes / ms / 1e6:.1f} GB/s; {lay.cols} "
+            f"columns a block; {scan_layout_text(info, lay.blocks)}")
         del x, B, C, dts, y, y_ref
         torch.cuda.empty_cache()
     return {"rows": rows, "worst": worst}
+
+
+def scan_sass() -> None:
+    """Whether the scan kernels' compiled code holds tensor-core
+    instructions (HMMA for mma.sync, HGMMA for wgmma), from cuobjdump -sass
+    of the built library; a note where the toolkit's cuobjdump cannot read
+    it."""
+    from repro_torch.kernels import build
+
+    tool = Path(build.find_nvcc()).with_name("cuobjdump")
+    try:
+        out = subprocess.run([str(tool), "-sass", str(build.build())],
+                             capture_output=True, text=True, timeout=300,
+                             check=True).stdout
+    except (OSError, subprocess.SubprocessError) as e:
+        log("kernels", f"sass of the scan kernels could not be read ({e})")
+        return
+    counts = {}
+    fn = None
+    for line in out.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            fn = next((k for k in ("ssd_kernel", "wkv_kernel") if k in name),
+                      None)
+            if fn:
+                counts.setdefault(fn, [0, 0, 0])[0] += 1
+        elif fn and "HGMMA" in line:
+            counts[fn][2] += 1
+        elif fn and "HMMA" in line:
+            counts[fn][1] += 1
+    text = "; ".join(f"{k}: {v[0]} variants, {v[1]} HMMA and {v[2]} HGMMA "
+                     f"instructions" for k, v in sorted(counts.items()))
+    log("kernels", f"sass of the scan kernels: {text or 'none found'}")
+    if any(v[1] + v[2] == 0 for v in counts.values()) or len(counts) < 2:
+        raise AssertionError("a scan kernel's code holds no tensor-core "
+                             "instruction")
 
 
 def decode_phase(dev) -> dict:
@@ -2055,6 +2155,7 @@ def main() -> int:
     flash = flash_phase(dev)
     wkv = wkv_phase(dev)
     ssd = ssd_phase(dev)
+    scan_sass()
     decode = decode_phase(dev)
     log("kernels", f"phase {time.perf_counter() - t:.2f} s")
     t = time.perf_counter()

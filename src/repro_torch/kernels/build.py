@@ -26,7 +26,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("featurize.cu", "linucb.cu", "moe_gating.cu",
            "flash_attention.cu", "rwkv6.cu", "mamba2.cu",
            "decode_attention.cu")
-HEADERS = ("tma.cuh",)          # included by sources; hashed with them
+HEADERS = ("tma.cuh", "scan_mma.cuh")   # included by sources; hashed too
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
@@ -42,9 +42,12 @@ _SIGNATURES = {
                                _I, _I, _P),
     "flash_attention_wgmma_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                      _I, _I, _P),
-    "rwkv6_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "rwkv6_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                     _P),
+    "rwkv6_info": (_I, _P),
     "mamba2_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                      _P),
+                      _I, _I, _P),
+    "mamba2_info": (_I, _I, _I, _P),
     "decode_attention_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                 _I, _I, _I, _I, _I, _P),
     "decode_attention_occupancy": (_I, _I, _I, _I, _P),

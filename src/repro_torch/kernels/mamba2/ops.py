@@ -1,7 +1,9 @@
 """Public wrapper of the Mamba2 SSD scan: the CUDA kernel for CUDA
-tensors, the plain version for CPU tensors.  The kernel walks the tokens
-one at a time, so any S is taken as it is (the Pallas wrapper picks a
-chunk that divides S)."""
+tensors, the plain version for CPU tensors.  The kernel takes the scan in
+chunks of 64 tokens (the chunk factorization, its products on the tensor
+cores, decays as products of factors <= 1 over 16-token tiles), one
+launch a call; any S is taken as it is, the last chunk ragged (the
+Pallas wrapper picks a chunk that divides S)."""
 from __future__ import annotations
 
 from typing import Optional, Tuple

@@ -10,7 +10,15 @@ Phases, in order; any failure raises and the script exits non-zero:
   3. kernels: the wrappers of featurize, LinUCB, MoE gating, flash
      attention, the RWKV6 WKV scan, the Mamba2 SSD scan and decode
      attention against their plain PyTorch versions on the card
-     (featurize 1e-5, LinUCB 1e-4, gating indices exact and weights 1e-6,
+     (featurize 1e-5 at the router's batches of Q = 1, 16, 64 and 256 in
+     both modes, a prompt of L = 4096 and edge rows: ids past H between
+     -1s, a repeated bucket, featureless rows exactly 0; LinUCB 1e-4 at
+     d = 12 with the served pool's 4 arms and 64, d = 128 at Q = 1024 and
+     a ragged 1000, M = 37, d = 150 and indefinite A^-1; both router
+     kernels timed at the launcher and on the card, their launch
+     geometry printed and held against ``layout()``; an empty kernel's
+     launch as the floor beside gating; gating indices exact and weights
+     1e-6,
      flash in bf16 on its tensor-core route at one bf16 unit plus the
      bound of carrying p as two bf16 parts, in fp32 on its scalar route
      at 2e-5,
@@ -183,6 +191,20 @@ PREFILL_FP32_REL_TOL = 1e-4
 # rtol); the per-token form and the plain recurrence sum in other orders
 WKV_FP32_TOL = 2e-4
 SSD_FP32_TOL = 3e-4
+# the router kernels' shapes: featurize (mode, Q) as route_batch pads
+# them (mode "both" doubles the rows), and LinUCB (M, d, Q): the served
+# pool's 4 arms and 64 at the router's d = 12, the production shape of the
+# JAX kernel's docstring (src/repro/kernels/linucb/kernel.py:12-13) and a
+# ragged Q, an odd M, d = 150 (two column passes); the rows whose launch
+# geometry is printed and held against layout()
+FEATURIZE_SHAPES = (("both", 1), ("both", 16), ("both", 64), ("both", 256),
+                    ("full", 1), ("full", 16), ("full", 64))
+FEATURIZE_GEOMETRY_ROWS = ("mode=both Q=1", "mode=both Q=64",
+                           "mode=both Q=256")
+LINUCB_SHAPES = ((4, 12, 1), (64, 12, 1), (64, 12, 16), (64, 12, 64),
+                 (64, 128, 1024), (64, 128, 1000), (37, 128, 3),
+                 (16, 150, 64))
+LINUCB_GEOMETRY_ROWS = ("M=4 d=12 Q=1", "M=64 d=128 Q=1024")
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 FP32_FLOPS = 67e12             # H100 SXM fp32, outside the tensor cores
 BF16_FLOPS = 989e12            # H100 SXM bf16 tensor cores, dense
@@ -428,69 +450,146 @@ def check_flash_route(what: str, want: str) -> int:
 # ---------------------------------------------------------------------------
 
 
-def featurize_phase(dev) -> dict:
+def featurize_cases(dev) -> list:
+    """(label, ids, weights, proj) on the card: the router's batches as
+    ``route_batch`` pads them (mode "both": the full texts then the
+    instruction slices; "full": the texts alone) at Q = 1, 16, 64 and 256
+    (512 rows), with a featureless row (" ") at index 1 of every batch of
+    more than one; one prompt of 2,049-4,096 features (L = 4096); and an
+    edge batch: ids at and past H interleaved with -1, one bucket repeated
+    (its count 5.25), a featureless row, a row of every kind at once."""
     from repro_torch.core.context import ContextGenerator
     from repro_torch.core.types import RouterConfig
     from repro_torch.data.stream import make_stream
-    from repro_torch.kernels.featurize import kernel, ops
-    from repro_torch.kernels.featurize.ref import hashed_embed_ref
+    from repro_torch.kernels.featurize import ops
 
     ctx = ContextGenerator(RouterConfig(), device=dev)
     proj = ctx.embedder.proj_device(dev)
-    stream = [q.text for q in make_stream(per_task=13, seed=21)]
+    h = proj.shape[0]
+    stream = [q.text for q in make_stream(per_task=52, seed=21)]
+    cases = []
+    for mode, q in FEATURIZE_SHAPES:
+        texts = stream[:q]
+        if q > 1:
+            texts[1] = " "                           # a featureless row
+        ids, w = ctx.padded_feature_tensors(
+            texts, want_full=True, want_instr=mode == "both",
+            q_pad=ops.pad_pow2(q))
+        cases.append((f"mode={mode} Q={q}", ids, w))
+    long_text, n = "", 0
+    for t in stream:
+        long_text += " " + t
+        n = ctx.embedder.hashed_features([long_text])[0].shape[1]
+        if n > 2048:
+            break
+    ids, w = ctx.padded_feature_tensors([long_text], want_full=True,
+                                        want_instr=False, q_pad=1)
+    cases.append((f"one prompt, {n} features", ids, w))
+    rng = np.random.default_rng(23)
+    ids = np.full((4, 128), -1, np.int32)
+    w = np.zeros((4, 128), np.float32)
+    wts = np.array([1.0, 0.5, 0.75], np.float32)
+    ids[0, 0::4] = rng.integers(0, h, 32)            # valid ids,
+    ids[0, 1::4] = h + rng.integers(0, 5000, 32)     # ids past H,
+    ids[0, 2::4] = h                                 # the first id past H
+    w[0] = rng.choice(wts, 128)                      # and -1 between
+    ids[1, :8] = 7                                   # one bucket 8 times
+    w[1, :8] = [1.0, 0.75, 0.5, 0.5, 0.75, 1.0, 0.75, 0.0]
+    ids[1, 8:40] = rng.integers(0, h, 32)
+    w[1, 8:40] = rng.choice(wts, 32)
+    ids[3] = np.where(rng.random(128) < 0.5, rng.integers(-1, h + 3, 128),
+                      7)
+    w[3] = rng.choice(wts, 128)                      # row 2: no features
+    cases.append(("edge rows", ids, w))
+    return [(label, torch.from_numpy(i).to(dev), torch.from_numpy(x).to(dev),
+             proj) for label, i, x in cases]
+
+
+def featurize_bound(ids, proj) -> tuple:
+    """What this data needs of the card, (ms, what bounds it).  Bytes: ids
+    and weights read once, the output written once, and of the projection
+    only the rows of buckets that some row of the batch hits (the kernel
+    reads no other).  Operations: a multiply-add per (row, non-zero bucket,
+    column), the scatter, log1p, the norm."""
+    rows, h = ids.shape[0], proj.shape[0]
+    ok = (ids >= 0) & (ids < h)
+    nnz = int((torch.zeros(rows, h, device=ids.device)
+               .scatter_add_(1, ids.long().clamp(0, h - 1), ok.float())
+               > 0).sum())
+    hit = int(torch.unique(ids[ok]).numel())
+    n_bytes = (2 * ids.numel() + hit * proj.shape[1]
+               + rows * proj.shape[1]) * 4
+    n_ops = (2 * nnz * proj.shape[1] + ids.numel()
+             + rows * (h + 3 * proj.shape[1]))
+    return bound(n_bytes, n_ops) + (hit, nnz)
+
+
+def featurize_phase(dev) -> dict:
+    from repro_torch.kernels.featurize import kernel, ops
+    from repro_torch.kernels.featurize.ref import hashed_embed_ref
+
     rows, worst = [], 0.0
-    for mode in ("both", "full"):
-        for q in (1, 16, 64):
-            texts = stream[:q]
-            if q > 1:
-                texts[1] = " "                       # a featureless row
-            q_pad = ops.pad_pow2(q)
-            ids, w = ctx.padded_feature_tensors(
-                texts, want_full=True, want_instr=mode == "both",
-                q_pad=q_pad)
-            ids_d = torch.from_numpy(ids).to(dev)
-            w_d = torch.from_numpy(w).to(dev)
-            out = ops.hashed_embed(ids_d, w_d, proj)
-            ref = hashed_embed_ref(ids_d, w_d, proj)
-            torch.cuda.synchronize()
-            err = float((out - ref).abs().max())
-            if not err <= FEATURIZE_TOL:
-                raise AssertionError(f"featurize {mode} Q={q}: max abs err "
-                                     f"{err} > {FEATURIZE_TOL}")
-            worst = max(worst, err)
-            ms = cuda_ms(lambda: kernel.hashed_embed_fwd(ids_d, w_d, proj))
-            plain_ms = cuda_ms(lambda: hashed_embed_ref(ids_d, w_d, proj))
-            # what this data needs.  bytes: ids and weights read once, the
-            # output written once, and of the projection only the rows of
-            # buckets that some row of the batch hits (the kernel reads no
-            # other); operations: a multiply-add per (row, non-zero
-            # bucket, column), the scatter, log1p, the norm
-            nnz = int((torch.zeros(ids.shape[0], proj.shape[0], device=dev)
-                       .scatter_add_(1, ids_d.long().clamp(min=0),
-                                     (ids_d >= 0).float()) > 0).sum())
-            hit = int(torch.unique(ids_d[ids_d >= 0]).numel())
-            n_bytes = (ids.size + w.size + hit * proj.shape[1]
-                       + ids.shape[0] * proj.shape[1]) * 4
-            n_ops = (2 * nnz * proj.shape[1] + ids.size
-                     + ids.shape[0] * (proj.shape[0] + 3 * proj.shape[1]))
-            b_ms, b_by = bound(n_bytes, n_ops)
-            rows.append(dict(mode=mode, q=q, rows=ids.shape[0],
-                             l=ids.shape[1], err=err, ms=ms,
-                             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by))
-            log("kernels", f"featurize mode={mode} Q={q} ({ids.shape[0]}x"
-                f"{ids.shape[1]} ids, {hit} buckets hit, {nnz} row-bucket "
-                f"pairs): err {err:.3g}, kernel {ms:.6f} ms, plain "
-                f"{plain_ms:.6f} ms, bound {b_ms:.6f} ms ({b_by})")
+    for label, ids_d, w_d, proj in featurize_cases(dev):
+        out = ops.hashed_embed(ids_d, w_d, proj)
+        ref = hashed_embed_ref(ids_d, w_d, proj)
+        torch.cuda.synchronize()
+        err = float((out - ref).abs().max())
+        if not err <= FEATURIZE_TOL:
+            raise AssertionError(f"featurize {label}: max abs err {err} > "
+                                 f"{FEATURIZE_TOL}")
+        empty = ((ids_d < 0) | (ids_d >= proj.shape[0])).all(dim=1)
+        if not (bool((out[empty] == 0).all()) and torch.isfinite(out).all()):
+            raise AssertionError(f"featurize {label}: a featureless row is "
+                                 f"not exactly zero, or an output is not "
+                                 f"finite")
+        worst = max(worst, err)
+        ms = cuda_ms(lambda: kernel.hashed_embed_fwd(ids_d, w_d, proj))
+        dev_ms = device_ms(lambda: kernel.hashed_embed_fwd(ids_d, w_d, proj),
+                           "featurize_kernel")
+        plain_ms = cuda_ms(lambda: hashed_embed_ref(ids_d, w_d, proj))
+        b_ms, b_by, hit, nnz = featurize_bound(ids_d, proj)
+        q, seq_l = ids_d.shape
+        lay = kernel.layout(q, seq_l, *proj.shape)
+        rows.append(dict(label=label, rows=q, l=seq_l, err=err, ms=ms,
+                         device_ms=dev_ms, plain_ms=plain_ms, bound_ms=b_ms,
+                         bound_by=b_by))
+        log("kernels", f"featurize {label} ({q}x{seq_l} ids, {hit} buckets "
+            f"hit, {nnz} row-bucket pairs, {int(empty.sum())} featureless): "
+            f"err {err:.3g}, launcher {ms:.6f} ms, device {ms_text(dev_ms)}, "
+            f"plain {plain_ms:.6f} ms, bound {b_ms:.6f} ms ({b_by})")
+        if label in FEATURIZE_GEOMETRY_ROWS:
+            geometry_check(f"featurize {label}", lay,
+                           kernel.info(q, *proj.shape, lay),
+                           dict(grid=lay.grid, cluster=lay.cluster,
+                                threads=lay.threads, smem=lay.smem))
     return {"rows": rows, "worst": worst}
 
 
-def linucb_phase(dev) -> dict:
-    from repro_torch.kernels.linucb import kernel, ops
-    from repro_torch.kernels.linucb.ref import linucb_scores_ref
+def geometry_check(what: str, lay, info, want: dict) -> None:
+    """Print a kernel's launch geometry and what the card says of it
+    (registers, spills, resident blocks), and hold the C launcher's own
+    grid, threads, cluster and shared memory against ``layout()``'s."""
+    got = dict(grid=info.grid, threads=info.threads, smem=info.dynamic_smem)
+    if "cluster" in want:
+        got["cluster"] = info.cluster
+    if got != want:
+        raise AssertionError(f"{what}: the launcher's geometry {got} is not "
+                             f"the layout's {want}")
+    log("kernels", f"{what} geometry: {lay}; {info.registers} registers a "
+        f"thread, {info.local_bytes} bytes spilled, {info.static_smem} "
+        f"static + {info.dynamic_smem} dynamic bytes of shared memory, "
+        f"{info.blocks_per_sm} resident blocks an SM of {info.n_sm}")
 
+
+def linucb_cases() -> list:
+    """(label, A^-1, theta, x) in numpy, seeded: the router's one-hot
+    contexts at d = 12 (the served pool's M = 4 and the batch path's M =
+    64), the docstring's production shape (M = 64, d = 128, Q = 1024) and
+    a ragged Q = 1000, an odd M = 37, d = 150 (two column passes), and an
+    indefinite A^-1 whose quadratic forms clamp to 0."""
     rng = np.random.default_rng(5)
-    rows, worst = [], 0.0
-    for m, d, q in ((64, 12, 1), (64, 12, 16), (64, 12, 64), (64, 128, 1024)):
+    cases = []
+    for m, d, q in LINUCB_SHAPES:
         low = rng.standard_normal((m, d, d)).astype(np.float32) * 0.2
         a_inv = np.einsum("mij,mkj->mik", low, low) + np.eye(d)[None]
         theta = rng.standard_normal((m, d)).astype(np.float32)
@@ -502,26 +601,57 @@ def linucb_phase(dev) -> dict:
             x[:, -1] = 1.0
         else:
             x = rng.standard_normal((q, d)).astype(np.float32)
-        a_d, t_d, x_d = (torch.from_numpy(np.ascontiguousarray(v, np.float32))
-                         .to(dev) for v in (a_inv, theta, x))
+        cases.append((f"M={m} d={d} Q={q}", a_inv, theta, x))
+    for d in (12, 128):                  # -A^-1: every form < 0, clamped
+        m, q = 8, 16
+        low = rng.standard_normal((m, d, d)).astype(np.float32) * 0.2
+        a_inv = -(np.einsum("mij,mkj->mik", low, low) + np.eye(d)[None])
+        cases.append((f"indefinite M={m} d={d} Q={q}", a_inv,
+                      rng.standard_normal((m, d)).astype(np.float32),
+                      rng.standard_normal((q, d)).astype(np.float32)))
+    return [(label, *(np.ascontiguousarray(v, np.float32) for v in arrs))
+            for label, *arrs in cases]
+
+
+def linucb_phase(dev) -> dict:
+    from repro_torch.kernels.linucb import kernel, ops
+    from repro_torch.kernels.linucb.ref import linucb_scores_ref
+
+    rows, worst = [], 0.0
+    for label, *arrs in linucb_cases():
+        a_d, t_d, x_d = (torch.from_numpy(v).to(dev) for v in arrs)
+        m, d, _ = a_d.shape
         out = ops.linucb_scores(a_d, t_d, x_d, 0.1)
         ref = linucb_scores_ref(a_d, t_d, x_d, 0.1)
         torch.cuda.synchronize()
         err = float((out - ref).abs().max())
         if not err <= LINUCB_TOL:
-            raise AssertionError(f"linucb M={m} d={d} Q={q}: max abs err "
-                                 f"{err} > {LINUCB_TOL}")
+            raise AssertionError(f"linucb {label}: max abs err {err} > "
+                                 f"{LINUCB_TOL}")
         worst = max(worst, err)
-        ms = cuda_ms(lambda: kernel.linucb_scores_fwd(a_d, t_d, x_d, 0.1))
-        plain_ms = cuda_ms(lambda: linucb_scores_ref(a_d, t_d, x_d, 0.1))
+        # the launcher at the wrapper's padded Q
+        q = ops.pad_pow2(x_d.shape[0])
+        xp = torch.nn.functional.pad(x_d, (0, 0, 0, q - x_d.shape[0]))
+        ms = cuda_ms(lambda: kernel.linucb_scores_fwd(a_d, t_d, xp, 0.1))
+        dev_ms = device_ms(lambda: kernel.linucb_scores_fwd(a_d, t_d, xp, 0.1),
+                           "linucb")
+        plain_ms = cuda_ms(lambda: linucb_scores_ref(a_d, t_d, xp, 0.1))
         n_bytes = (m * d * d + m * d + q * d + q * m) * 4
         n_ops = q * m * (2 * d * d + 2 * d + 4)
         b_ms, b_by = bound(n_bytes, n_ops)
-        rows.append(dict(m=m, d=d, q=q, err=err, ms=ms, plain_ms=plain_ms,
+        lay = kernel.layout(q, m, d)
+        rows.append(dict(label=label, m=m, d=d, q=x_d.shape[0], err=err,
+                         ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
                          bound_ms=b_ms, bound_by=b_by))
-        log("kernels", f"linucb M={m} d={d} Q={q}: err {err:.3g}, kernel "
-            f"{ms:.6f} ms, plain {plain_ms:.6f} ms, bound {b_ms:.6f} ms "
-            f"({b_by})")
+        log("kernels", f"linucb {label} (padded Q {q}, {lay.path} path): err "
+            f"{err:.3g}, launcher {ms:.6f} ms, device {ms_text(dev_ms)}, "
+            f"plain {plain_ms:.6f} ms, bound {b_ms:.6f} ms ({b_by}), "
+            f"{n_ops / ms / 1e9:.3f} TFLOP/s at the launcher")
+        if label in LINUCB_GEOMETRY_ROWS:
+            geometry_check(f"linucb {label}", lay,
+                           kernel.info(q, m, d, lay),
+                           dict(grid=lay.grid, threads=lay.threads,
+                                smem=lay.smem))
     return {"rows": rows, "worst": worst}
 
 
@@ -572,15 +702,28 @@ def gating_phase(dev) -> dict:
         plain_ms = cuda_ms(lambda: topk_gating_ref(logits, k))
         # bytes: the logits read once, weights and indices written once
         b_ms, b_by = bound(t * e * 4 + t * k * 8, 0)
-        rows.append(dict(t=t, tied=tied, err=err, ms=ms, plain_ms=plain_ms,
-                         bound_ms=b_ms, bound_by=b_by))
+        rows.append(dict(t=t, tied=tied, err=err, ms=ms, device_ms=dev_ms,
+                         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by))
         on_card = "" if tied else f", device {ms_text(dev_ms)}"
         log("kernels", f"moe_gating T={t} E={e} k={k}{' tied' if tied else ''}"
             f": indices equal, weight err {err:.3g}, launcher {ms:.6f} ms"
             f"{on_card}, wrapper {wrapper_ms:.6f} ms, topk + softmax "
             f"{topk_ms:.6f} ms, plain {plain_ms:.6f} ms, bound {b_ms:.6f} ms "
             f"({b_by})")
+    floor_ms = cuda_ms(empty_launch)
+    floor_dev = device_ms(empty_launch, "empty_kernel")
+    log("kernels", f"launch floor (an empty kernel through the same ctypes "
+        f"path): launcher {floor_ms:.6f} ms, device {ms_text(floor_dev)}; "
+        f"moe_gating T=4 on the card {ms_text(rows[0]['device_ms'])}")
     return {"rows": rows, "worst": worst}
+
+
+def empty_launch() -> None:
+    """One launch of the empty kernel (``csrc/empty.cu``) on the current
+    stream: what any launch through the ctypes path costs."""
+    from repro_torch.kernels import build
+    build.check(build.library().empty_launch(
+        torch.cuda.current_stream().cuda_stream), "empty")
 
 
 def visible_pairs(sq: int, sk: int, window: int, causal: bool) -> int:
@@ -808,7 +951,7 @@ def wkv_phase(dev) -> dict:
         b_ms, b_by = bound(n_bytes, n_ops, BF16_FLOPS)
         tok_ms, _ = bound(0, b * s * h * (5 * kd * kd + 6 * kd))
         rows.append(dict(name=name, shape=(b, s, h, kd, str(dt)), err=err,
-                         ms=ms, dev_ms=dev_ms, plain_ms=plain_ms,
+                         ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
                          bound_ms=b_ms, bound_by=b_by, token_ops_ms=tok_ms))
         lay = kernel.layout(b, h, r.element_size())
         info = kernel.info(r.device.index, kernel.DTYPE_CODES[dt])
@@ -870,7 +1013,7 @@ def ssd_phase(dev) -> dict:
         b_ms, b_by = bound(n_bytes, n_ops, BF16_FLOPS)
         tok_ms, _ = bound(0, b * s * h * (5 * p * n + p + 2))
         rows.append(dict(name=name, shape=(b, s, h, p, n, str(dt)), err=err,
-                         ms=ms, dev_ms=dev_ms, plain_ms=plain_ms,
+                         ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
                          bound_ms=b_ms, bound_by=b_by, token_ops_ms=tok_ms))
         lay = kernel.layout(b, h, n, x.element_size())
         info = kernel.info(x.device.index, kernel.DTYPE_CODES[dt], n,
@@ -985,7 +1128,7 @@ def decode_phase(dev) -> dict:
                            BF16_FLOPS if dt == torch.bfloat16 else FP32_FLOPS)
         rows.append(dict(name=name, shape=(b, s, hq, hk, hd, clen, win,
                                            str(dt)),
-                         err=err, ms=ms, plain_ms=plain_ms,
+                         err=err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
                          library_ms=library_ms, bound_ms=b_ms, bound_by=b_by))
         occ, lay = kernel.plan(q, k)
         # a wave: every SM holding as many blocks as the layout lets it
@@ -2190,8 +2333,8 @@ def main() -> int:
     # models', zamba2's 13 sites and gemma3's 48 layers).  The decode
     # attention row is gemma3's global layers in lockstep decode (B = 4,
     # cache_len 32705 of 32768), its launches those of the 32 steps
-    f1 = next(r for r in feat["rows"] if r["mode"] == "both" and r["q"] == 1)
-    l1 = next(r for r in lin["rows"] if r["d"] == 12 and r["q"] == 1)
+    f1 = next(r for r in feat["rows"] if r["label"] == "mode=both Q=1")
+    l1 = next(r for r in lin["rows"] if r["label"] == "M=4 d=12 Q=1")
     g4 = next(r for r in gate["rows"] if r["t"] == 4 and not r["tied"])
     fa = flash["rows"][0]
     da = decode["rows"][0]
@@ -2202,7 +2345,8 @@ def main() -> int:
                 "replaces": f"src/repro/kernels/{replaces}",
                 "launches": n, "max_abs_err": worst, "ms": r["ms"],
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                "bound_by": r["bound_by"], "library_ms": library_ms}
+                "bound_by": r["bound_by"], "library_ms": library_ms,
+                "device_ms": r.get("device_ms")}
 
     kernels = [
         row("featurize", "featurize.cu", "featurize/kernel.py:37",

@@ -25,8 +25,9 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("featurize.cu", "linucb.cu", "moe_gating.cu",
            "flash_attention.cu", "rwkv6.cu", "mamba2.cu",
-           "decode_attention.cu")
-HEADERS = ("tma.cuh", "scan_mma.cuh")   # included by sources; hashed too
+           "decode_attention.cu", "empty.cu")
+# included by sources; hashed too
+HEADERS = ("tma.cuh", "scan_mma.cuh", "kernel_info.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
@@ -35,8 +36,11 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # entry point -> argument types (restype is int: the cudaError_t)
 _SIGNATURES = {
-    "featurize_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
-    "linucb_launch": (_P, _P, _P, _P, _I, _I, _I, ctypes.c_float, _P),
+    "featurize_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "featurize_info": (_I, _I, _I, _I, _I, _P),
+    "linucb_launch": (_P, _P, _P, _P, _I, _I, _I, ctypes.c_float, _I, _P),
+    "linucb_info": (_I, _I, _I, _I, _P),
+    "empty_launch": (_P,),
     "moe_gating_launch": (_P, _P, _P, _I, _I, _I, _P),
     "flash_attention_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                _I, _I, _P),

@@ -27,6 +27,8 @@
 
 #include <cstdint>
 
+#include "kernel_info.cuh"
+
 namespace {
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -415,31 +417,6 @@ __device__ __forceinline__ void copy_rows(char* dst, int sstride,
     cp_async16(dst + r * sstride + c,
                ok ? src + r * gstride + c : src, ok);
   }
-}
-
-// the kernels' variants and what the card says of each: registers a
-// thread, local (spilled) bytes a thread, static and dynamic shared
-// memory a block, resident blocks an SM, the card's SMs, threads a block
-template <typename K>
-int kernel_info(K kernel, int threads, int smem, int* info) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  cudaFuncAttributes attr{};
-  int device = 0;
-  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&info[4], kernel,
-                                                        threads, smem);
-  if (err == cudaSuccess) err = cudaGetDevice(&device);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&info[5], cudaDevAttrMultiProcessorCount,
-                                 device);
-  info[0] = attr.numRegs;
-  info[1] = static_cast<int>(attr.localSizeBytes);
-  info[2] = static_cast<int>(attr.sharedSizeBytes);
-  info[3] = smem;
-  info[6] = threads;
-  return static_cast<int>(err);
 }
 
 }  // namespace

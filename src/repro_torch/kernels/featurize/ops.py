@@ -39,6 +39,8 @@ def hashed_embed(ids: torch.Tensor, weights: torch.Tensor,
     if ids.device.type == "cpu":
         out = hashed_embed_ref(ids, weights, proj)
     elif ids.device.type == "cuda":
+        if proj.data_ptr() % 16:           # the kernel reads float4 rows
+            proj = proj.clone()
         out = kernel.hashed_embed_fwd(ids.contiguous(), weights.contiguous(),
                                       proj)
         launches += 1

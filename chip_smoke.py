@@ -51,6 +51,18 @@ Phases, in order; any failure raises and the script exits non-zero:
   4. router: one 64-query stream through twin routers on the card, device
      featurize vs host featurize — arms, labels, clusters and bins must be
      identical;
+  4b. the paper's closed loop (``repro_torch.benchmarks``), every router
+     on the card with ``featurize="auto"`` (the device path for LinUCB):
+     (a) the replay over the 16-model pool at T = 2,500 — GreenServ
+     (LinUCB), random, largest, smallest, best, non-contextual and
+     contextual ε-greedy — with every assertion of
+     tests/test_paper_claims.py, decision ms < 25 included; (b) device vs
+     host featurize at T = 750, identical traces; (c) gemma-3-12b held
+     out and joining at query 1,000 (§6.2.4); (d) 750 queries through
+     ``PoolServer`` over 16 ``SimEngine``s, every one answered; (e) the
+     RouterBench sweep at its --smoke size (linucb, eps_greedy_ctx).  One
+     featurize and one LinUCB launch per device-path routing call, one
+     LinUCB launch per host-path LinUCB call, none for ε-greedy;
   5. serving: ``PoolServer`` over four full-width engines (granite-3-8b,
      rwkv6-1.6b, qwen2-moe-a2.7b, h2o-danube-3-4b; bf16,
      ``use_pallas=True``, random weights from a seed) on a synthetic
@@ -310,6 +322,14 @@ GEMMA_FEED_MAX_TOL = {"bf16": 0.1, "fp32": 1e-3}
 GEMMA_PROFILE_STEPS = 4         # lockstep steps profiled after the main run
 GEMMA_REQUESTS = (4, 32, 16)
 GEMMA_ENGINE_MAX_LEN = 2048
+# the paper phase (the paper's closed loop on the 16-model pool, §6):
+PAPER_PER_TASK = 500           # T = 2,500, the paper's stream (§6.1.2)
+PAPER_TWIN_PER_TASK = 150      # T = 750: device vs host featurize
+PAPER_ADD_AT = 1000            # §6.2.4: gemma-3-12b joins at query 1,000
+PAPER_SERVE_PER_TASK = 150     # 750 queries through PoolServer
+PAPER_SERVE_BATCH = 25         # drive_pool_stream's admission batch
+PAPER_RB_PER_TASK = 40         # bench_routerbench's --smoke size
+PAPER_DECISION_MS = 25.0       # tests/test_paper_claims.py's bound
 GATING_T = (4, 32, 4096)       # decode tick, chunk tick (4 x 8), a prefill
 # WKV shapes: rwkv6's prefill (B, S, H), its dtypes (r, k, v bf16; logw, u
 # and the zero initial state fp32, as forward_hidden passes them), then
@@ -1204,6 +1224,197 @@ def router_phase(dev) -> None:
         raise AssertionError(f"device and host routing differ at {bad[:8]}")
     log("router", f"64 queries: arms, labels, clusters, bins identical on "
         f"both featurize paths (classifier train acc {acc:.3f})")
+
+
+# ---------------------------------------------------------------------------
+# 4b. the paper's closed loop on the 16-model pool
+# ---------------------------------------------------------------------------
+
+
+def take_launches(what: str, featurize: int, linucb: int) -> dict:
+    """The router kernels' launches since the last reset, held against
+    the route calls just driven; resets the counts for the next part."""
+    got = read_launches()
+    if (got["featurize"], got["linucb"]) != (featurize, linucb):
+        raise AssertionError(
+            f"{what}: featurize/linucb launched {got['featurize']}/"
+            f"{got['linucb']} times, expected {featurize}/{linucb}")
+    reset_launches()
+    return {"featurize": featurize, "linucb": linucb}
+
+
+def paper_claims(res: dict) -> None:
+    """Every assertion of tests/test_paper_claims.py, on these results."""
+    from repro_torch.core.types import TaskType
+    from repro_torch.data.profiles import ACCURACY, mean_energy_mwh
+
+    gs, rnd = res["greenserv"], res["random"]
+    gain = gs.mean_accuracy / rnd.mean_accuracy
+    ratio = gs.total_energy_wh / rnd.total_energy_wh
+    checks = [
+        ("accuracy gain vs random > 1.10", gain > 1.10, gain),
+        ("energy ratio vs random < 0.95", ratio < 0.95, ratio),
+        ("best static more accurate", res["best"].mean_accuracy
+         > gs.mean_accuracy, res["best"].mean_accuracy),
+        ("best static > 3x the energy", res["best"].total_energy_wh
+         > 3 * gs.total_energy_wh, res["best"].total_energy_wh),
+        ("smallest static less energy", res["smallest"].total_energy_wh
+         < gs.total_energy_wh, res["smallest"].total_energy_wh),
+        ("largest static accuracy < 0.45",
+         res["largest"].mean_accuracy < 0.45, res["largest"].mean_accuracy),
+        ("regret < 1.25x non-contextual", gs.cumulative_regret
+         < 1.25 * res["nonctx"].cumulative_regret,
+         (gs.cumulative_regret, res["nonctx"].cumulative_regret)),
+        ("decision ms < 25", gs.mean_decision_ms < PAPER_DECISION_MS,
+         gs.mean_decision_ms)]
+    curve = gs.regret_curve
+    t = len(curve)
+    first = curve[t // 4] / (t // 4)
+    last = (curve[-1] - curve[3 * t // 4]) / (t - 3 * t // 4)
+    checks.append(("regret sublinear", last < 0.6 * first, (first, last)))
+    per_q = gs.total_energy_wh / len(gs.selection_trace)
+    for m, accs in ACCURACY.items():
+        e = np.mean([mean_energy_mwh(m, task) / 1e3 for task in TaskType])
+        if e <= per_q * 1.05:
+            checks.append((f"no static model beats GreenServ at its energy "
+                           f"({m})", np.mean(accs) <= gs.mean_accuracy + 0.02,
+                           np.mean(accs)))
+    failed = [c for c in checks if not c[1]]
+    for name, ok, val in checks:
+        log("paper", f"  {'ok ' if ok else 'FAIL'} {name}: {val}")
+    if failed:
+        raise AssertionError(f"paper claims failed: {[c[0] for c in failed]}")
+
+
+def paper_phase(dev) -> dict:
+    """The paper's experiments through the port's entry points, every
+    router on the card with ``featurize="auto"``: (a) the replay at T =
+    2,500 with every assertion of tests/test_paper_claims.py; (b) device
+    vs host featurize at T = 750; (c) the §6.2.4 addition; (d) the paced
+    ``PoolServer`` drive over 16 ``SimEngine``s; (e) the RouterBench
+    sweep at its --smoke size.  Returns the router kernels' launches."""
+    from repro_torch.benchmarks.common import (drive_pool_stream,
+                                               make_router, run_policy,
+                                               stream)
+    from repro_torch.benchmarks.routerbench import run_algorithm
+    from repro_torch.configs.pool import ADDITION_MODEL
+    from repro_torch.data import OutcomeSimulator
+
+    launches = {"featurize": 0, "linucb": 0}
+
+    def tally(counts):
+        for k in launches:
+            launches[k] += counts[k]
+
+    # (a) the replay at T = 2,500
+    qs = stream(per_task=PAPER_PER_TASK)
+    res = {}
+    reset_launches()
+    t = time.perf_counter()
+    gs = make_router(lam=0.4, seed=0, device=dev)
+    if not gs._device_featurize_active():
+        raise AssertionError("featurize='auto' did not resolve to the "
+                             "device path on the card")
+    res["greenserv"] = run_policy(gs, qs, OutcomeSimulator(7), "greenserv")
+    gs_s = time.perf_counter() - t
+    res["random"] = run_policy(None, qs, OutcomeSimulator(7), "random",
+                               random_seed=3)
+    for name, model in (("largest", "yi-34b"), ("smallest", "qwen2.5-0.5b"),
+                        ("best", "gemma-3-27b")):
+        res[name] = run_policy(None, qs, OutcomeSimulator(7), name,
+                               static_model=model)
+    nonctx = make_router(lam=0.4, algorithm="eps_greedy",
+                         features=(False, False, False), seed=0, device=dev)
+    res["nonctx"] = run_policy(nonctx, qs, OutcomeSimulator(7), "nonctx")
+    ctx = make_router(lam=0.4, algorithm="eps_greedy_ctx", seed=0,
+                      device=dev)
+    res["eps_ctx"] = run_policy(ctx, qs, OutcomeSimulator(7), "eps_ctx")
+    tally(take_launches("(a) T = 2,500", gs.n_routed, gs.n_routed))
+    for name, r in res.items():
+        log("paper", f"(a) {name:9s} acc {r.mean_accuracy:.4f}  energy "
+            f"{r.total_energy_wh:.4f} Wh  regret {r.cumulative_regret:.4f}"
+            f"  decision {r.mean_decision_ms:.4f} ms/query")
+    rnd = res["random"]
+    g = res["greenserv"]
+    log("paper", f"(a) GreenServ vs random: accuracy "
+        f"{100 * (g.mean_accuracy / rnd.mean_accuracy - 1):+.2f}% (paper "
+        f"+22%), energy {100 * (g.total_energy_wh / rnd.total_energy_wh - 1):+.2f}"
+        f"% (paper -31%); decision {g.mean_decision_ms:.4f} ms/query on "
+        f"the card (paper ~7 ms, Table 4), {gs_s:.2f} s wall for "
+        f"{len(qs)} queries; features ms/query {g.feature_ms}")
+    paper_claims(res)
+
+    # (b) device == host featurize at T = 750
+    qs = stream(per_task=PAPER_TWIN_PER_TASK)
+    twins = {}
+    for featurize in ("device", "host"):
+        r = make_router(lam=0.4, seed=0, device=dev, featurize=featurize)
+        if r._device_featurize_active() != (featurize == "device"):
+            raise AssertionError(f"featurize={featurize} took the wrong path")
+        twins[featurize] = run_policy(r, qs, OutcomeSimulator(7), featurize)
+    dv, hs = twins["device"], twins["host"]
+    if not np.array_equal(dv.selection_trace, hs.selection_trace):
+        bad = np.flatnonzero(dv.selection_trace != hs.selection_trace)
+        raise AssertionError(f"(b) device and host featurize differ at "
+                             f"{bad[:8].tolist()}")
+    if (dv.mean_accuracy, dv.total_energy_wh) != (hs.mean_accuracy,
+                                                  hs.total_energy_wh):
+        raise AssertionError("(b) equal traces, unequal outcomes")
+    tally(take_launches("(b) T = 750", len(qs), 2 * len(qs)))
+    log("paper", f"(b) T = {len(qs)}: device and host featurize traces "
+        f"identical; acc {dv.mean_accuracy:.4f}, {dv.total_energy_wh:.4f} "
+        f"Wh; decision {dv.mean_decision_ms:.4f} (device) / "
+        f"{hs.mean_decision_ms:.4f} (host) ms/query")
+
+    # (c) the §6.2.4 addition
+    qs = stream(per_task=PAPER_PER_TASK)
+    add = make_router(lam=0.4, seed=0, device=dev, exclude=[ADDITION_MODEL])
+    r = run_policy(add, qs, OutcomeSimulator(7), "addition",
+                   add_model_at=PAPER_ADD_AT, add_model_name=ADDITION_MODEL)
+    arm = add.pool.index_of(ADDITION_MODEL)
+    after = r.selection_trace[PAPER_ADD_AT:]
+    pulls = int((after == arm).sum())
+    if pulls == 0:
+        raise AssertionError(f"(c) {ADDITION_MODEL} never pulled after it "
+                             f"joined")
+    tally(take_launches("(c) addition", len(qs), len(qs)))
+    log("paper", f"(c) {ADDITION_MODEL} joined at query {PAPER_ADD_AT}: "
+        f"{pulls} of the {len(after)} later pulls (first at query "
+        f"{PAPER_ADD_AT + int(np.argmax(after == arm))}); acc "
+        f"{r.mean_accuracy:.4f}, {r.total_energy_wh:.4f} Wh")
+
+    # (d) PoolServer over 16 SimEngines
+    qs = stream(per_task=PAPER_SERVE_PER_TASK, seed=1)
+    t = time.perf_counter()
+    sr = drive_pool_stream(qs, batch=PAPER_SERVE_BATCH, device=dev,
+                           fit_classifier=True)
+    wall = time.perf_counter() - t
+    answered = len(sr.server.responses)
+    if answered != len(qs) or set(sr.server.responses) != {q.uid
+                                                            for q in qs}:
+        raise AssertionError(f"(d) {answered} of {len(qs)} answered")
+    batches = -(-len(qs) // PAPER_SERVE_BATCH)
+    tally(take_launches("(d) drive_pool_stream", batches, batches))
+    log("paper", f"(d) PoolServer over 16 SimEngines: {answered}/{len(qs)} "
+        f"answered in {sr.n_steps} steps ({sr.step_ms:.4f} ms a step, "
+        f"{wall:.2f} s wall); acc {sr.mean_accuracy:.4f}, "
+        f"{sr.total_energy_wh:.4f} Wh; {batches} route_batch calls")
+
+    # (e) RouterBench at the --smoke size
+    for algorithm in ("linucb", "eps_greedy_ctx"):
+        t = time.perf_counter()
+        card = run_algorithm(algorithm, n_per_task=PAPER_RB_PER_TASK,
+                             device=dev)
+        routed = card["n_queries"] * len(card["trajectory"])
+        if algorithm == "linucb":
+            tally(take_launches("(e) RouterBench linucb", routed, routed))
+        else:
+            take_launches("(e) RouterBench eps_greedy_ctx", 0, 0)
+        log("paper", f"(e) RouterBench {algorithm}: AIQ {card['aiq']:.4f}, "
+            f"peak {100 * card['peak_acc']:.2f}%, average "
+            f"{100 * card['avg_acc']:.2f}% (paper 0.607 / 75.7% / 71.7%); "
+            f"{routed} routes in {time.perf_counter() - t:.2f} s")
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -2305,6 +2516,9 @@ def main() -> int:
     router_phase(dev)
     log("router", f"phase {time.perf_counter() - t:.2f} s")
     t = time.perf_counter()
+    paper = paper_phase(dev)
+    log("paper", f"phase {time.perf_counter() - t:.2f} s")
+    t = time.perf_counter()
     launches, engines = serving_phase(dev)
     log("serve", f"phase {time.perf_counter() - t:.2f} s")
     t = time.perf_counter()
@@ -2326,7 +2540,7 @@ def main() -> int:
     log("total", f"{time.perf_counter() - t_start:.2f} s after the build")
 
     # the serving path routes admission batches of one: the router kernels'
-    # rows are at Q = 1; its MoE decode ticks gate T = 4 rows.  The flash
+    # rows are at Q = 1 (their launches: serving's and the paper phase's); its MoE decode ticks gate T = 4 rows.  The flash
     # row is granite's one-shot prefill (B = 2, S = 2048), the WKV row
     # rwkv6's (B = 2, S = 2048), the SSD row zamba2's (B = 1, S = 4096);
     # their launches are the one-shot prefills' (flash: the four served
@@ -2350,9 +2564,9 @@ def main() -> int:
 
     kernels = [
         row("featurize", "featurize.cu", "featurize/kernel.py:37",
-            launches["featurize"], feat["worst"], f1),
+            launches["featurize"] + paper["featurize"], feat["worst"], f1),
         row("linucb", "linucb.cu", "linucb/kernel.py:25",
-            launches["linucb"], lin["worst"], l1),
+            launches["linucb"] + paper["linucb"], lin["worst"], l1),
         row("moe_gating", "moe_gating.cu", "moe_gating/kernel.py:23",
             launches["moe_gating"], gate["worst"], g4),
         row("flash_attention", "flash_attention.cu",

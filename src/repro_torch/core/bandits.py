@@ -1,4 +1,9 @@
-"""Contextual multi-armed bandit (paper §4.3): LinUCB over tensors.
+"""Contextual multi-armed bandits (paper §4.3) over tensors.
+
+Two of the paper's policies:
+
+  * LinUCB (primary, Eq. 13)   — linear reward model + UCB exploration
+  * ε-greedy (contextual & plain) — decayed random exploration
 
 All state lives in one ``BanditState`` with *static* arm capacity
 (``max_arms``) and an ``active`` mask, so models added at runtime never
@@ -11,8 +16,10 @@ maintained inverses.  The updates write the state tensors in place (the
 JAX package replaces its arrays and donates the old buffers; here the one
 copy on the device is simply overwritten).
 
-Contextual Thompson sampling, ε-greedy and the paper-faithful Cholesky
-solve mode are not in this slice: selecting them raises
+ε-greedy draws from the policy's key through ``core/prng.py``, the JAX
+package's Threefry stream on the host, so its explorations are the JAX
+package's, draw for draw.  Contextual Thompson sampling and the
+paper-faithful Cholesky solve mode are not ported: selecting them raises
 ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -22,40 +29,45 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core import prng
 from repro_torch.core.residency import TransferLedger
 from repro_torch.core.types import RouterConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels.linucb import linucb_scores as linucb_scores_kernel
 
 NEG_INF = -1e30
+ALGORITHMS = ("linucb", "eps_greedy", "eps_greedy_ctx")
 
 
 def check_supported(config: RouterConfig) -> None:
-    """Raise for the policies this slice does not port yet."""
-    if config.algorithm != "linucb" or config.solve_mode != "sherman_morrison":
+    """Raise for the policies the port does not have yet (CTS, the
+    Cholesky solve mode) and for names no package knows."""
+    if config.algorithm == "cts" or config.solve_mode != "sherman_morrison":
         raise NotImplementedError(
             f"algorithm={config.algorithm!r} solve_mode={config.solve_mode!r}"
-            f": CTS, ε-greedy and the Cholesky solve mode wait for the "
-            f"port's stochastic-policies slice; this slice serves LinUCB "
-            f"with Sherman–Morrison inverses")
+            f": CTS and the Cholesky solve mode wait for the port's "
+            f"policies slice; the port serves LinUCB and ε-greedy with "
+            f"Sherman–Morrison inverses")
+    if config.algorithm not in ALGORITHMS:
+        raise ValueError(f"unknown algorithm {config.algorithm!r}")
 
 
 class BanditState(NamedTuple):
     """Per-arm sufficient statistics. Shapes: M=max_arms, d=context dim.
-    ``key`` is the policy's random-stream key as a (2,) uint32 numpy array:
-    LinUCB never draws from it, so it is carried opaquely (a JAX key loads
-    as it is) and only advanced per batch."""
+    ``key`` is the policy's random-stream key as a (2,) uint32 numpy array
+    on the host, a raw ``jax.random.PRNGKey``'s layout: a JAX state's key
+    loads as it is and continues the same stream (``core/prng.py``)."""
 
     A: torch.Tensor           # (M, d, d) ridge design matrices A_m = λI + Σ x xᵀ
     A_inv: torch.Tensor       # (M, d, d) maintained inverses (Sherman–Morrison)
     b: torch.Tensor           # (M, d)    reward-weighted contexts Σ r x
     theta: torch.Tensor       # (M, d)    cached θ̂_m = A_m⁻¹ b_m
-    reward_sum: torch.Tensor  # (M,)      Σ r
+    reward_sum: torch.Tensor  # (M,)      Σ r      (non-contextual ε-greedy)
     counts: torch.Tensor      # (M,)      pull counts
     active: torch.Tensor      # (M,) bool — is this slot a live model?
     eps: torch.Tensor         # ()        current ε (decayed)
     t: torch.Tensor           # ()        global step
-    key: np.ndarray           # (2,) uint32, opaque
+    key: np.ndarray           # (2,) uint32, host
 
 
 def init_state(config: RouterConfig, n_arms: int,
@@ -108,6 +120,16 @@ def linucb_scores_batch(state: BanditState, X: torch.Tensor,
     return linucb_scores_kernel(state.A_inv, state.theta, X, alpha)
 
 
+def greedy_scores(state: BanditState, X: torch.Tensor,
+                  contextual: bool) -> torch.Tensor:
+    """ε-greedy's exploitation scores, (Q, d) contexts → (Q, M): θ̂_m·x
+    (contextual), or each arm's mean reward Σr / max(pulls, 1)."""
+    if contextual:
+        return X @ state.theta.T
+    mean = state.reward_sum / torch.clamp(state.counts, min=1.0)
+    return mean[None, :].expand(X.shape[0], -1)
+
+
 def sherman_morrison_update(state: BanditState, arm: int, x: torch.Tensor,
                             r: torch.Tensor, config: RouterConfig) -> None:
     """LinUCB posterior update (paper §4.3), in place:
@@ -157,7 +179,8 @@ class BanditPolicy:
         LinUCB with maintained inverses is deterministic, so the whole
         batch is scored by one kernel call and an argmax per row (ties to
         the lowest index) — arm choices are identical to Q sequential
-        selections on the same state."""
+        selections on the same state.  ε-greedy keeps sequential
+        per-query semantics (``_select_eps_greedy``)."""
         check_supported(self.config)
         X = np.asarray(X, dtype=np.float32)
         feas = np.asarray(feasible, dtype=bool)
@@ -167,24 +190,60 @@ class BanditPolicy:
                     np.zeros((0, m), dtype=np.float32))
         if feas.shape[1] < m:
             feas = np.pad(feas, ((0, 0), (0, m - feas.shape[1])))
-        scores = linucb_scores_batch(
-            self.state, torch.from_numpy(X).to(self.device),
-            self.config.alpha_ucb)
+        x_dev = torch.from_numpy(X).to(self.device)
+        if self.config.algorithm != "linucb":
+            return self._select_eps_greedy(x_dev, feas)
+        scores = linucb_scores_batch(self.state, x_dev,
+                                     self.config.alpha_ucb)
         mask = self.state.active.cpu().numpy()[None, :] & feas
         masked = np.where(mask, scores.cpu().numpy(), NEG_INF)
         arms = np.argmax(masked, axis=1)
         self.advance_key()
         return arms.astype(np.int64), masked.astype(np.float32)
 
+    def _select_eps_greedy(self, x_dev: torch.Tensor, feas: np.ndarray
+                           ) -> Tuple[np.ndarray, np.ndarray]:
+        """ε-greedy over a batch, row by row as the JAX package's scan
+        (``make_select_batch_scan_fn``): each row splits the key into
+        (key, k_sel, k_eps), draws a uniform feasible arm from k_sel, and
+        explores when a uniform draw from k_eps falls below ε; otherwise
+        it takes the greedy arm (ties to the lowest index).  Selection
+        changes no statistic, so ε and the scores are the same for every
+        row, and Q rows leave the key where Q sequential selections
+        would.
+
+        The greedy scores are computed on the router's device, where the
+        state lives; per batch the (Q, M) scores, the (M,) active mask
+        and ε cross to the host, as the LinUCB path reads its scores and
+        mask.  The draws run on the host (``core/prng.py``), and only the
+        host key changes."""
+        st = self.state
+        scores = greedy_scores(
+            st, x_dev, self.config.algorithm == "eps_greedy_ctx")
+        mask = st.active.cpu().numpy()[None, :] & feas
+        masked = np.where(mask, scores.cpu().numpy(),
+                          NEG_INF).astype(np.float32)
+        eps = np.float32(st.eps.cpu().numpy())
+        m = masked.shape[1]
+        key = st.key
+        arms = np.empty(masked.shape[0], np.int64)
+        for i, (row, row_mask) in enumerate(zip(masked, mask)):
+            key, k_sel, k_eps = prng.split(key, 3)
+            probs = (row_mask.astype(np.float32)
+                     / np.float32(max(int(row_mask.sum()), 1)))
+            rand_arm = prng.choice(k_sel, m, probs)
+            explore = prng.uniform(k_eps) < eps
+            arms[i] = rand_arm if explore else int(np.argmax(row))
+        self.state = st._replace(key=key)
+        return arms, masked
+
     def advance_key(self) -> None:
-        """Advance the opaque random-stream key so a batched selection is
-        not a state no-op.  Shared by the host ``select_batch`` path and
-        the router's fused device pipeline so both leave the bandit state
-        identically (LinUCB never draws from the key; its values are not
-        the JAX package's threefry stream)."""
-        nxt = np.random.default_rng(self.state.key.astype(np.uint64)).integers(
-            0, 2 ** 32, size=2, dtype=np.uint64).astype(np.uint32)
-        self.state = self.state._replace(key=nxt)
+        """Advance the key as the JAX package's batched LinUCB selection
+        does, to the first key of ``split(key, 2)``, so a batch is not a
+        state no-op.  Shared by the host ``select_batch`` path and the
+        router's fused device pipeline, so both leave the bandit state
+        identically (LinUCB never draws from the key)."""
+        self.state = self.state._replace(key=prng.split(self.state.key, 2)[0])
 
     def update(self, arm: int, x: np.ndarray, reward: float) -> None:
         sherman_morrison_update(
@@ -224,7 +283,8 @@ class BanditPolicy:
 
     def load_state_dict(self, d: dict) -> None:
         """Load a state dict — this package's or the JAX package's (its
-        PRNG key is kept as an opaque uint32 array)."""
+        raw PRNG key loads as the (2,) uint32 key and continues the same
+        stream)."""
         self.transfers.count_h2d()
         fields = {}
         for k in BanditState._fields:

@@ -574,8 +574,8 @@ class GreenServRouter:
     def state_dict(self) -> dict:
         """Serialize the full routing state.
 
-        The bandit dict carries the whole ``BanditState`` (the opaque key
-        and the A matrices included), the context dict
+        The bandit dict carries the whole ``BanditState`` (the random
+        stream's key and the A matrices included), the context dict
         forces the k-means device→host sync, and ``lam`` pins the
         scalarization the posterior was built under, so a restored router
         routes identically to the one that saved.  ``load_state_dict``

@@ -1,5 +1,12 @@
 """Per-model serving engines with slot-based continuous batching.
 
+Two backends behind one interface:
+
+  * ``ModelEngine`` — a real PyTorch model (below);
+  * ``SimEngine``   — a timing/energy/accuracy model of a pool member
+    (the paper's 16-model pool has no weights here); used by the
+    paper-scale replay (``repro_torch.benchmarks``).
+
 ``ModelEngine`` runs a real PyTorch model over a (max_batch,)-slot KV
 cache with *per-slot lengths*.  Prompts run as **chunked prefill**: each
 engine tick feeds every prefilling slot up to ``prefill_chunk`` prompt
@@ -30,10 +37,9 @@ state, and idle slots feed token 0 through ``serve_step`` and drift.
 That is a fault of the reference, reproduced on purpose so both packages
 generate the same tokens (ROADMAP C).
 
-This slice serves unified engines: prefix-KV splice/capture and the
-disaggregated prefill/decode roles wait for the port's cache and
-disaggregation slices, and the paper-scale ``SimEngine`` for its
-paper-scale slice.
+The engines are unified: prefix-KV splice/capture (``ModelEngine``'s,
+and ``SimEngine.set_prefix_cache``) and the disaggregated prefill/decode
+roles wait for the port's cache and disaggregation slices.
 """
 from __future__ import annotations
 
@@ -455,5 +461,177 @@ class ModelEngine(BaseEngine):
         self.queue = []
         self.cache = api.init_cache(self.cfg, self.max_batch, self.max_len,
                                     self.device)
+        self._failed = False
+        return inflight
+
+
+class SimEngine(BaseEngine):
+    """Pool-member simulator: latency/energy/accuracy from profiles.
+
+    Used by the paper-scale benchmarks (16 models × 2500 queries in
+    seconds).  ``outcome_fn(query, model_name) -> (accuracy, energy_wh,
+    latency_ms, out_tokens)`` encapsulates the calibrated behaviour tables
+    (repro_torch.data.profiles).
+
+    A cheap twin of ``ModelEngine`` for everything the scheduler observes:
+
+      * ``concurrency`` mirrors the slot semantics: up to that many queued
+        requests make progress each step, and ``free_capacity`` reports
+        the unused slots so ``PoolServer.enqueue`` continuous batching
+        admits at the pool's real parallelism;
+      * ``clock`` injects the time source so ``start_s``/``finish_s``/
+        heartbeats can live on a virtual clock instead of mixing wall and
+        modeled time;
+      * energy is phase-split: each completion's Wh divides into prefill
+        vs decode by per-token weights mirroring the calibrated tables'
+        marginal costs, feeding ``cumulative_joules_by_phase`` and
+        ``Response.prefill_wh`` like the real engine;
+      * ``modeled_time_s`` advances by the slowest active request's
+        per-step latency share, so virtual-clock drives can diff it.
+
+    The JAX package's prefix-KV reuse model (a ``PrefixCache`` probe at
+    activation, the avoided-prefill credit, ``estimate_prefill_wh``)
+    comes with the port's cache slice.
+    """
+
+    # prefill/decode per-token Wh weights for the phase split; the ratio
+    # mirrors repro_torch.data.profiles' marginal costs (MWH_PER_B_PER_IN_TOKEN
+    # vs MWH_PER_B_PER_OUT_TOKEN), kept literal to avoid a data-layer dep
+    PREFILL_TOKEN_WEIGHT = 0.002
+    DECODE_TOKEN_WEIGHT = 0.15
+
+    def __init__(self, profile: ModelProfile, outcome_fn,
+                 steps_per_query: int = 1, concurrency: int = 1,
+                 clock: Optional[Callable[[], float]] = None):
+        if concurrency < 1:
+            raise ValueError(f"concurrency must be >= 1, got {concurrency}")
+        self.name = profile.name
+        self.profile = profile
+        self.outcome_fn = outcome_fn
+        self.queue: List[Request] = []
+        self.steps_per_query = steps_per_query
+        self.concurrency = concurrency
+        self.clock = clock or time.monotonic
+        self._failed = False
+        self._last_step_s = self.clock()
+        self._progress: Dict[int, int] = {}
+        # outcome drawn once at first service step (slot activation) and
+        # held until completion, so latency can pace the modeled clock
+        self._outcomes: Dict[int, tuple] = {}
+        self._phase_joules = {"prefill": 0.0, "decode": 0.0}
+        self._modeled_time_s = 0.0
+
+    def submit(self, req: Request) -> None:
+        req.model_name = self.name
+        self.queue.append(req)
+
+    @property
+    def pending(self) -> int:
+        return len(self.queue)
+
+    @property
+    def free_capacity(self) -> int:
+        return max(0, self.concurrency - len(self.queue))
+
+    def set_prefix_cache(self, cache) -> None:
+        raise NotImplementedError(
+            "SimEngine.set_prefix_cache waits for the port's cache slice "
+            "(its PrefixCache)")
+
+    def cumulative_joules(self) -> float:
+        return self._phase_joules["prefill"] + self._phase_joules["decode"]
+
+    def cumulative_joules_by_phase(self) -> Dict[str, float]:
+        return dict(self._phase_joules)
+
+    def modeled_time_s(self) -> float:
+        return self._modeled_time_s
+
+    def _phase_split(self, n_in: int, n_out: int) -> float:
+        """Prefill fraction of a completion's energy, by token-weighted
+        marginal cost (the fixed overhead splits proportionally)."""
+        pre = max(n_in, 0) * self.PREFILL_TOKEN_WEIGHT
+        dec = max(n_out, 1) * self.DECODE_TOKEN_WEIGHT
+        return pre / max(pre + dec, 1e-12)
+
+    def _activate(self, req: Request) -> tuple:
+        """First service step for a request: stamp start, draw + pin the
+        outcome."""
+        if req.start_s == 0.0:
+            req.start_s = self.clock()
+        outcome = self._outcomes.get(req.uid)
+        if outcome is None:
+            # state stays QUEUED while in service (a sim "slot" has no
+            # prefill/decode sub-lifecycle), so a slow head-of-queue
+            # request is still hedgeable, as on the real engine
+            outcome = self.outcome_fn(req.query, self.name)
+            self._outcomes[req.uid] = outcome
+        return outcome
+
+    def _finish(self, req: Request, outcome: tuple) -> Response:
+        acc, energy_wh, latency_ms, out_tokens = outcome
+        n_in = len(req.prompt_tokens)
+        pre_wh = energy_wh * self._phase_split(n_in, out_tokens)
+        dec_wh = energy_wh - pre_wh
+        self._phase_joules["prefill"] += pre_wh * JOULES_PER_WH
+        self._phase_joules["decode"] += dec_wh * JOULES_PER_WH
+        req.state = RequestState.DONE
+        req.finish_s = self.clock()
+        resp = Response(
+            uid=req.uid, model_name=self.name, tokens=[], text="",
+            latency_ms=latency_ms,
+            queue_ms=(req.start_s - req.submit_s) * 1e3,
+            energy_wh=pre_wh + dec_wh,
+            input_tokens=n_in,
+            output_tokens=out_tokens, ttft_ms=latency_ms, prefill_wh=pre_wh)
+        resp.accuracy = acc  # type: ignore[attr-defined]
+        return resp
+
+    def step(self) -> List[Response]:
+        if self._failed:
+            raise EngineFailure(f"engine {self.name} failed")
+        self._last_step_s = self.clock()
+        out: List[Response] = []
+        if not self.queue:
+            return out
+        keep: List[Request] = []
+        active = 0
+        tick_dt = 0.0
+        for pos, req in enumerate(self.queue):
+            if active >= self.concurrency:
+                keep.extend(self.queue[pos:])
+                break
+            if req.defunct:
+                self._progress.pop(req.uid, None)
+                self._outcomes.pop(req.uid, None)
+                continue                       # drop; frees its slot
+            active += 1
+            outcome = self._activate(req)
+            # the tick takes as long as its slowest active request's
+            # per-step share (slots run concurrently, like real slots)
+            tick_dt = max(tick_dt,
+                          outcome[2] / 1e3 / max(self.steps_per_query, 1))
+            k = self._progress.get(req.uid, 0) + 1
+            if k < self.steps_per_query:
+                self._progress[req.uid] = k
+                keep.append(req)
+                continue
+            self._progress.pop(req.uid, None)
+            self._outcomes.pop(req.uid, None)
+            out.append(self._finish(req, outcome))
+        self.queue = keep
+        self._modeled_time_s += tick_dt
+        return out
+
+    def restart(self) -> List[Request]:
+        # like ModelEngine.restart: defunct requests are dropped, never
+        # resurrected into the scheduler's bookkeeping
+        inflight = [r for r in self.queue if not r.defunct]
+        for r in inflight:
+            r.state = RequestState.QUEUED
+            r.start_s = 0.0
+        self.queue = []
+        self._progress.clear()
+        self._outcomes.clear()
         self._failed = False
         return inflight

@@ -120,6 +120,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -204,19 +205,22 @@ PREFILL_FP32_REL_TOL = 1e-4
 WKV_FP32_TOL = 2e-4
 SSD_FP32_TOL = 3e-4
 # the router kernels' shapes: featurize (mode, Q) as route_batch pads
-# them (mode "both" doubles the rows), and LinUCB (M, d, Q): the served
-# pool's 4 arms and 64 at the router's d = 12, the production shape of the
-# JAX kernel's docstring (src/repro/kernels/linucb/kernel.py:12-13) and a
-# ragged Q, an odd M, d = 150 (two column passes); the rows whose launch
-# geometry is printed and held against layout()
-FEATURIZE_SHAPES = (("both", 1), ("both", 16), ("both", 64), ("both", 256),
-                    ("full", 1), ("full", 16), ("full", 64))
+# them (mode "both" doubles the rows; Q = 25 is the paper phase's
+# drive_pool_stream batch), and LinUCB (M, d, Q): the served pool's 4 arms
+# and 64 at the router's d = 12, the production shape of the JAX kernel's
+# docstring (src/repro/kernels/linucb/kernel.py:12-13) and a ragged Q, an
+# odd M, d = 150 (two column passes), then the paper phase's: the 16-model
+# pool's max_arms 32 at Q = 1 (route) and Q = 25 (route_batch), and
+# RouterBench's 16 arms at Q = 1; the rows whose launch geometry is
+# printed and held against layout()
+FEATURIZE_SHAPES = (("both", 1), ("both", 16), ("both", 25), ("both", 64),
+                    ("both", 256), ("full", 1), ("full", 16), ("full", 64))
 FEATURIZE_GEOMETRY_ROWS = ("mode=both Q=1", "mode=both Q=64",
                            "mode=both Q=256")
 LINUCB_SHAPES = ((4, 12, 1), (64, 12, 1), (64, 12, 16), (64, 12, 64),
                  (64, 128, 1024), (64, 128, 1000), (37, 128, 3),
-                 (16, 150, 64))
-LINUCB_GEOMETRY_ROWS = ("M=4 d=12 Q=1", "M=64 d=128 Q=1024")
+                 (16, 150, 64), (32, 12, 1), (32, 12, 25), (16, 12, 1))
+LINUCB_GEOMETRY_ROWS = ("M=4 d=12 Q=1", "M=32 d=12 Q=1", "M=64 d=128 Q=1024")
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 FP32_FLOPS = 67e12             # H100 SXM fp32, outside the tensor cores
 BF16_FLOPS = 989e12            # H100 SXM bf16 tensor cores, dense
@@ -603,10 +607,11 @@ def geometry_check(what: str, lay, info, want: dict) -> None:
 
 def linucb_cases() -> list:
     """(label, A^-1, theta, x) in numpy, seeded: the router's one-hot
-    contexts at d = 12 (the served pool's M = 4 and the batch path's M =
-    64), the docstring's production shape (M = 64, d = 128, Q = 1024) and
-    a ragged Q = 1000, an odd M = 37, d = 150 (two column passes), and an
-    indefinite A^-1 whose quadratic forms clamp to 0."""
+    contexts at d = 12 (the served pool's M = 4, the batch path's M = 64,
+    the paper pool's M = 32 and RouterBench's M = 16), the docstring's
+    production shape (M = 64, d = 128, Q = 1024) and a ragged Q = 1000, an
+    odd M = 37, d = 150 (two column passes), and an indefinite A^-1 whose
+    quadratic forms clamp to 0."""
     rng = np.random.default_rng(5)
     cases = []
     for m, d, q in LINUCB_SHAPES:
@@ -2517,6 +2522,8 @@ def main() -> int:
     log("router", f"phase {time.perf_counter() - t:.2f} s")
     t = time.perf_counter()
     paper = paper_phase(dev)
+    gc.collect()                  # the phase's routers and servers
+    torch.cuda.empty_cache()
     log("paper", f"phase {time.perf_counter() - t:.2f} s")
     t = time.perf_counter()
     launches, engines = serving_phase(dev)
@@ -2539,16 +2546,18 @@ def main() -> int:
     log("crosscheck", f"phase {time.perf_counter() - t:.2f} s")
     log("total", f"{time.perf_counter() - t_start:.2f} s after the build")
 
-    # the serving path routes admission batches of one: the router kernels'
-    # rows are at Q = 1 (their launches: serving's and the paper phase's); its MoE decode ticks gate T = 4 rows.  The flash
-    # row is granite's one-shot prefill (B = 2, S = 2048), the WKV row
+    # the router kernels' rows are at Q = 1, LinUCB's at the paper pool's
+    # M = 32, where most of their launches fall (their launches: serving's
+    # admission batches of one at M = 4 and the paper phase's at M = 32
+    # and RouterBench's M = 16); the MoE decode ticks gate T = 4 rows.  The
+    # flash row is granite's one-shot prefill (B = 2, S = 2048), the WKV row
     # rwkv6's (B = 2, S = 2048), the SSD row zamba2's (B = 1, S = 4096);
     # their launches are the one-shot prefills' (flash: the four served
     # models', zamba2's 13 sites and gemma3's 48 layers).  The decode
     # attention row is gemma3's global layers in lockstep decode (B = 4,
     # cache_len 32705 of 32768), its launches those of the 32 steps
     f1 = next(r for r in feat["rows"] if r["label"] == "mode=both Q=1")
-    l1 = next(r for r in lin["rows"] if r["label"] == "M=4 d=12 Q=1")
+    l1 = next(r for r in lin["rows"] if r["label"] == "M=32 d=12 Q=1")
     g4 = next(r for r in gate["rows"] if r["t"] == 4 and not r["tied"])
     fa = flash["rows"][0]
     da = decode["rows"][0]

@@ -94,7 +94,5 @@ def aiq(points: Sequence[Tuple[float, float]]) -> float:
     span = costs[-1] - costs[0]
     if span <= 0:
         return float(quals.max())
-    # np.trapezoid from numpy 2.0, np.trapz before it: the same rule
-    trapezoid = getattr(np, "trapezoid", None) or np.trapz
-    area = trapezoid(quals, costs)
+    area = np.trapezoid(quals, costs)
     return float(area / span)

@@ -10,10 +10,11 @@ Phases, in order; any failure raises and the script exits non-zero:
   3. kernels: the wrappers of featurize, LinUCB, MoE gating, flash
      attention, the RWKV6 WKV scan, the Mamba2 SSD scan and decode
      attention against their plain PyTorch versions on the card
-     (featurize 1e-5 at the router's batches of Q = 1, 16, 64 and 256 in
-     both modes, a prompt of L = 4096 and edge rows: ids past H between
+     (featurize 1e-5 at the router's batches of Q = 1, 2, 4, 16, 25, 64
+     and 256, a prompt of L = 4096 and edge rows: ids past H between
      -1s, a repeated bucket, featureless rows exactly 0; LinUCB 1e-4 at
-     d = 12 with the served pool's 4 arms and 64, d = 128 at Q = 1024 and
+     d = 12 with the served pool's 4 arms and 64 (Q = 1, 2, 4, 16, 64),
+     the paper pool's 32 and RouterBench's 16, d = 128 at Q = 1024 and
      a ragged 1000, M = 37, d = 150 and indefinite A^-1; both router
      kernels timed at the launcher and on the card, their launch
      geometry printed and held against ``layout()``; an empty kernel's
@@ -60,9 +61,14 @@ Phases, in order; any failure raises and the script exits non-zero:
      host featurize at T = 750, identical traces; (c) gemma-3-12b held
      out and joining at query 1,000 (§6.2.4); (d) 750 queries through
      ``PoolServer`` over 16 ``SimEngine``s, every one answered; (e) the
-     RouterBench sweep at its --smoke size (linucb, eps_greedy_ctx).  One
-     featurize and one LinUCB launch per device-path routing call, one
-     LinUCB launch per host-path LinUCB call, none for ε-greedy;
+     RouterBench sweep at its --smoke size (linucb, eps_greedy_ctx, cts);
+     (f) the ``ctx-thompson`` row at T = 2,500 beside the JAX package's
+     CPU numbers, and at T = 150 on the card and the CPU side by side,
+     identical arms and key; (g) LinUCB's Cholesky mode against
+     Sherman–Morrison at M = 32, d = 12, scores at 2e-4, the same arms,
+     one decision timed in each.  One featurize and one LinUCB launch per
+     device-path routing call, one LinUCB launch per host-path
+     Sherman–Morrison call, none for ε-greedy, CTS or the Cholesky mode;
   5. serving: ``PoolServer`` over four full-width engines (granite-3-8b,
      rwkv6-1.6b, qwen2-moe-a2.7b, h2o-danube-3-4b; bf16,
      ``use_pallas=True``, random weights from a seed) on a synthetic
@@ -73,6 +79,19 @@ Phases, in order; any failure raises and the script exits non-zero:
      prompts goes straight into any engine the router sent fewer than 4
      queries — with three windows of the run under torch.profiler for the
      card's busy share and the top kernels;
+  5b. GreenCache on the serving engines: (a) the admission probe (one
+     featurize launch over the stacked rows) against the host features at
+     Q = 1, 2, 3, 16 and 60, labels and clusters equal, embeddings 1e-5;
+     (b) one-slot granite-3-8b and qwen2-moe-a2.7b engines on the serving
+     weights generate the same tokens with a spliced 40-token preamble
+     as cold (the first token's logit gap printed), and rwkv6 takes no
+     prefix cache; (c) the cache workload (60 queries, Poisson arrivals
+     on a virtual clock) through ``PoolServer`` over granite, qwen2-moe
+     and danube with the cache off and full (512 blocks, threshold
+     0.92): every query answered, semantic and prefix hits, fewer metered
+     joules, and featurize launched once per admission batch in both
+     modes (in full mode by the probe; the decision reuses its
+     embeddings);
   6. one-shot prefill: ``api.prefill`` on the four served models at full
      width (granite B=2 S=2048, danube B=1 S=6144, qwen2-moe B=2 S=2048,
      rwkv6 B=2 S=2048) through the flash kernel at every attention layer
@@ -213,11 +232,13 @@ SSD_FP32_TOL = 3e-4
 # pool's max_arms 32 at Q = 1 (route) and Q = 25 (route_batch), and
 # RouterBench's 16 arms at Q = 1; the rows whose launch geometry is
 # printed and held against layout()
-FEATURIZE_SHAPES = (("both", 1), ("both", 16), ("both", 25), ("both", 64),
-                    ("both", 256), ("full", 1), ("full", 16), ("full", 64))
+FEATURIZE_SHAPES = (("both", 1), ("both", 2), ("both", 4), ("both", 16),
+                    ("both", 25), ("both", 64), ("both", 256), ("full", 1),
+                    ("full", 16), ("full", 64))
 FEATURIZE_GEOMETRY_ROWS = ("mode=both Q=1", "mode=both Q=64",
                            "mode=both Q=256")
-LINUCB_SHAPES = ((4, 12, 1), (64, 12, 1), (64, 12, 16), (64, 12, 64),
+LINUCB_SHAPES = ((4, 12, 1), (64, 12, 1), (64, 12, 2), (64, 12, 4),
+                 (64, 12, 16), (64, 12, 64),
                  (64, 128, 1024), (64, 128, 1000), (37, 128, 3),
                  (16, 150, 64), (32, 12, 1), (32, 12, 25), (16, 12, 1))
 LINUCB_GEOMETRY_ROWS = ("M=4 d=12 Q=1", "M=32 d=12 Q=1", "M=64 d=128 Q=1024")
@@ -334,7 +355,24 @@ PAPER_SERVE_PER_TASK = 150     # 750 queries through PoolServer
 PAPER_SERVE_BATCH = 25         # drive_pool_stream's admission batch
 PAPER_RB_PER_TASK = 40         # bench_routerbench's --smoke size
 PAPER_DECISION_MS = 25.0       # tests/test_paper_claims.py's bound
+# the JAX package's ctx-thompson row from its run_policy on a CPU at T =
+# 2,500 (accuracy, Wh, regret; benchmarks/common.py, jax 0.9.0)
+CTS_JAX_T2500 = (0.621420, 163.989938, 88.795839)
+CTS_TWIN_PER_TASK = 30         # T = 150: CTS on the card vs the CPU path
+CTS_TIE = 1e-5                 # a top-two gap below this is a rounding tie
+CHOL_ARMS = (32, 16)           # the paper pool: max_arms, live arms
+CHOL_UPDATES = 400             # seeded posterior updates before comparing
+CHOL_TOL = 2e-4                # tests/test_bandits.py's tolerance
+CHOL_DECISIONS = 200           # decisions timed per solve mode
 GATING_T = (4, 32, 4096)       # decode tick, chunk tick (4 x 8), a prefill
+CACHE_ARCHS = ("granite-3-8b", MOE_ARCH, "h2o-danube-3-4b")  # rwkv6 out
+CACHE_WARM_ARCHS = ("granite-3-8b", MOE_ARCH)
+CACHE_QUERIES = 60             # the cache workload: 60 queries, seed 0
+CACHE_BLOCKS = 512             # the launcher's --kv-cache-blocks
+CACHE_THRESHOLD = 0.92         # and --semantic-threshold
+CACHE_PROBE_Q = (1, 2, 3, 16, 60)  # admission batches the probe is held at
+CACHE_PREAMBLE = 40            # a preamble's whole blocks, in tokens
+CACHE_WARM_NEW = 8             # tokens generated by the warm/cold check
 # WKV shapes: rwkv6's prefill (B, S, H), its dtypes (r, k, v bf16; logw, u
 # and the zero initial state fp32, as forward_hidden passes them), then
 # the same in fp32 with a nonzero initial state, then a ragged S, S = 1
@@ -477,8 +515,9 @@ def check_flash_route(what: str, want: str) -> int:
 def featurize_cases(dev) -> list:
     """(label, ids, weights, proj) on the card: the router's batches as
     ``route_batch`` pads them (mode "both": the full texts then the
-    instruction slices; "full": the texts alone) at Q = 1, 16, 64 and 256
-    (512 rows), with a featureless row (" ") at index 1 of every batch of
+    instruction slices; "full": the texts alone) at Q = 1, 2, 4, 16, 25,
+    64 and 256 (512 rows; Q = 2 and 4 are the cache phase's admission
+    batches), with a featureless row (" ") at index 1 of every batch of
     more than one; one prompt of 2,049-4,096 features (L = 4096); and an
     edge batch: ids at and past H interleaved with -1, one bucket repeated
     (its count 5.25), a featureless row, a row of every kind at once."""
@@ -1301,7 +1340,8 @@ def paper_phase(dev) -> dict:
     from repro_torch.benchmarks.common import (drive_pool_stream,
                                                make_router, run_policy,
                                                stream)
-    from repro_torch.benchmarks.routerbench import run_algorithm
+    from repro_torch.benchmarks.routerbench import (ALGORITHMS, ROW_NAMES,
+                                                    run_algorithm)
     from repro_torch.configs.pool import ADDITION_MODEL
     from repro_torch.data import OutcomeSimulator
 
@@ -1405,8 +1445,9 @@ def paper_phase(dev) -> dict:
         f"{wall:.2f} s wall); acc {sr.mean_accuracy:.4f}, "
         f"{sr.total_energy_wh:.4f} Wh; {batches} route_batch calls")
 
-    # (e) RouterBench at the --smoke size
-    for algorithm in ("linucb", "eps_greedy_ctx"):
+    # (e) RouterBench at the --smoke size (CTS: the JAX package's
+    # "thompson" row; the stochastic policies launch no router kernel)
+    for algorithm in ALGORITHMS:
         t = time.perf_counter()
         card = run_algorithm(algorithm, n_per_task=PAPER_RB_PER_TASK,
                              device=dev)
@@ -1414,12 +1455,137 @@ def paper_phase(dev) -> dict:
         if algorithm == "linucb":
             tally(take_launches("(e) RouterBench linucb", routed, routed))
         else:
-            take_launches("(e) RouterBench eps_greedy_ctx", 0, 0)
-        log("paper", f"(e) RouterBench {algorithm}: AIQ {card['aiq']:.4f}, "
-            f"peak {100 * card['peak_acc']:.2f}%, average "
-            f"{100 * card['avg_acc']:.2f}% (paper 0.607 / 75.7% / 71.7%); "
-            f"{routed} routes in {time.perf_counter() - t:.2f} s")
+            take_launches(f"(e) RouterBench {algorithm}", 0, 0)
+        log("paper", f"(e) RouterBench {ROW_NAMES[algorithm]} ({algorithm}):"
+            f" AIQ {card['aiq']:.4f}, peak {100 * card['peak_acc']:.2f}%, "
+            f"average {100 * card['avg_acc']:.2f}% (paper 0.607 / 75.7% / "
+            f"71.7%); {routed} routes in {time.perf_counter() - t:.2f} s")
+    cts_rows(dev)
+    cholesky_vs_sherman_morrison(dev)
     return launches
+
+
+def cts_rows(dev) -> None:
+    """(f) The ``ctx-thompson`` row: at T = 2,500 on the card, beside the
+    JAX package's CPU numbers; at T = 150 on the card and on the port's
+    CPU path side by side — identical arms and key (at the first query
+    whose arms differ, if any, the card's top-two gap is printed, and a
+    gap above ``CTS_TIE`` fails).  CTS runs the host featurize path and
+    scores on the card: no router kernel launches."""
+    from repro_torch.benchmarks.common import make_router, run_policy, stream
+    from repro_torch.core.types import Feedback
+    from repro_torch.data import OutcomeSimulator
+
+    qs = stream(per_task=PAPER_PER_TASK)
+    t = time.perf_counter()
+    r = make_router(lam=0.4, algorithm="cts", seed=0, device=dev)
+    if (r._device_featurize_active()
+            or r.policy.state.A.device.type != torch.device(dev).type):
+        raise AssertionError("CTS must take the host featurize path and "
+                             "keep its posterior on the card")
+    res = run_policy(r, qs, OutcomeSimulator(7), "ctx-thompson")
+    wall = time.perf_counter() - t
+    take_launches("(f) ctx-thompson T = 2,500", 0, 0)
+    ja, jw, jr = CTS_JAX_T2500
+    log("paper", f"(f) ctx-thompson T = {len(qs)} on the card: acc "
+        f"{res.mean_accuracy:.6f}, {res.total_energy_wh:.6f} Wh, regret "
+        f"{res.cumulative_regret:.6f}, decision {res.mean_decision_ms:.4f} "
+        f"ms/query, {wall:.2f} s wall (the JAX package on a CPU: "
+        f"{ja:.6f}, {jw:.6f} Wh, regret {jr:.6f})")
+
+    qs = stream(per_task=CTS_TWIN_PER_TASK)
+    where = (dev, "cpu")
+    routers = {w: make_router(lam=0.4, algorithm="cts", seed=0, device=w)
+               for w in where}
+    sims = {w: OutcomeSimulator(7) for w in where}
+    first = None
+    for t, q in enumerate(qs):
+        ds = {w: routers[w].route(q) for w in where}
+        arms = {w: d.model_index for w, d in ds.items()}
+        if first is None and arms[dev] != arms["cpu"]:
+            top = np.sort(ds[dev].ucb_scores)[::-1]
+            first = (t, arms, float(top[0] - top[1]))
+        for w in where:
+            acc, e, lat, _ = sims[w](q, routers[w].pool.names[arms[w]])
+            routers[w].feedback(Feedback(query_uid=q.uid,
+                                         model_index=arms[w], accuracy=acc,
+                                         energy_wh=e, latency_ms=lat))
+    keys = {w: routers[w].policy.state_dict()["key"] for w in where}
+    if not np.array_equal(keys[dev], keys["cpu"]):
+        raise AssertionError(f"(f) CTS keys differ: {keys}")
+    take_launches("(f) ctx-thompson T = 150", 0, 0)
+    if first is not None:
+        t, arms, gap = first
+        log("paper", f"(f) CTS T = {len(qs)}: arms first differ at query "
+            f"{t} ({arms}), the card's top-two gap there {gap:.3g}")
+        if gap > CTS_TIE:
+            raise AssertionError(f"(f) CTS on the card and on the CPU "
+                                 f"differ at query {t} with a top-two gap "
+                                 f"of {gap:.3g} > {CTS_TIE}")
+    else:
+        log("paper", f"(f) CTS T = {len(qs)}: the card's and the CPU "
+            f"path's arms identical at every query, keys equal "
+            f"({keys['cpu'].tolist()})")
+
+
+def cholesky_vs_sherman_morrison(dev) -> None:
+    """(g) The §Perf comparison of benchmarks/bench_overhead.py: LinUCB's
+    paper-faithful Cholesky mode against the maintained Sherman–Morrison
+    inverses on one seeded posterior at the paper pool's M = 32, d = 12 —
+    scores within 2e-4 and the same arms, and one decision's time in
+    each mode on the card (``select_batch`` at Q = 1, ending in its
+    device→host read)."""
+    from repro_torch.core import bandits
+    from repro_torch.core.types import RouterConfig
+
+    cfg = RouterConfig(max_arms=CHOL_ARMS[0], seed=0)
+    d = cfg.context_dim
+    pols = {mode: bandits.BanditPolicy(
+        dataclasses.replace(cfg, solve_mode=mode), n_arms=CHOL_ARMS[1],
+        device=dev) for mode in bandits.SOLVE_MODES}
+    rng = np.random.default_rng(4)
+
+    def context(n):
+        x = np.zeros((n, d), np.float32)
+        x[np.arange(n), rng.integers(0, 5, n)] = 1.0
+        x[np.arange(n), 5 + rng.integers(0, 3, n)] = 1.0
+        x[np.arange(n), 8 + rng.integers(0, 3, n)] = 1.0
+        x[:, -1] = 1.0
+        return x
+
+    for x in context(CHOL_UPDATES):
+        arm, r = int(rng.integers(CHOL_ARMS[1])), float(rng.normal())
+        for pol in pols.values():
+            pol.update(arm, x, r)
+    X = torch.from_numpy(context(64)).to(dev)
+    st = pols["cholesky"].state
+    sm = bandits.linucb_scores_batch(st, X, cfg.alpha_ucb)
+    ch = bandits.linucb_scores_cholesky(st, X, cfg.alpha_ucb)
+    err = float((sm - ch)[:, :CHOL_ARMS[1]].abs().max())
+    if not err <= CHOL_TOL:
+        raise AssertionError(f"(g) Cholesky vs Sherman–Morrison scores: "
+                             f"max abs err {err} > {CHOL_TOL}")
+    feas = np.ones((1, CHOL_ARMS[1]), bool)
+    xs = context(CHOL_DECISIONS)
+    ms, chosen = {}, {}
+    for mode, pol in pols.items():
+        pol.select_batch(xs[:1], feas)              # warm-up
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        chosen[mode] = [int(pol.select_batch(x[None], feas)[0][0])
+                        for x in xs]
+        ms[mode] = (time.perf_counter() - t) * 1e3 / len(xs)
+    if chosen["cholesky"] != chosen["sherman_morrison"]:
+        raise AssertionError("(g) the two solve modes chose different arms")
+    reset_launches()          # the comparison's launches are not a path's
+    log("paper", f"(g) LinUCB at M = {CHOL_ARMS[0]} ({CHOL_ARMS[1]} live), "
+        f"d = {d}, after {CHOL_UPDATES} updates: Cholesky vs "
+        f"Sherman–Morrison scores max abs err {err:.3g} (tolerance "
+        f"{CHOL_TOL}), the same arms over {len(xs)} decisions; one "
+        f"decision on the card {ms['sherman_morrison']:.4f} ms "
+        f"(Sherman–Morrison, the LinUCB kernel) against "
+        f"{ms['cholesky']:.4f} ms (Cholesky, factor + solves in PyTorch), "
+        f"{ms['cholesky'] / ms['sherman_morrison']:.2f}x")
 
 
 # ---------------------------------------------------------------------------
@@ -1671,6 +1837,203 @@ def profile_window(server, pending, label: str, before_s) -> dict:
         log("profile", line)
     return {"label": label, "dev_ms": dev_ms, "wall_ms": wall_ms,
             "busy": dev_ms / wall_ms, "busy_before": dev_ms / before_ms}
+
+
+# ---------------------------------------------------------------------------
+# 5b. GreenCache on the serving phase's full-width engines
+# ---------------------------------------------------------------------------
+
+
+def serve_one(eng, prompt: list, uid: int) -> tuple:
+    """One request through a one-slot engine: (its response, the logits
+    of its first generated token as fp32 on the host)."""
+    from repro_torch.core.types import Query
+    from repro_torch.serving.request import Request
+
+    rows, read = [], eng._read_next
+
+    def recording(last_logits):
+        rows.append(last_logits[0].float().cpu())
+        return read(last_logits)
+
+    eng._read_next = recording
+    try:
+        req = Request(query=Query(uid=uid, text="warm or cold"),
+                      prompt_tokens=prompt,
+                      max_new_tokens=CACHE_WARM_NEW)
+        eng.submit(req)
+        first, done = None, []
+        while not done:
+            done += eng.step()
+            if first is None and req.generated:
+                first = rows[-1]
+    finally:
+        del eng._read_next
+    return done[0], first
+
+
+def cache_phase(dev, engines) -> dict:
+    """GreenCache at full width (bf16, ``use_pallas=True``): (a) the
+    admission probe through the featurize kernel against the host
+    ``GreenCache.features``; (b) warm (a spliced 40-token preamble) vs
+    cold generation on granite-3-8b and qwen2-moe-a2.7b, and rwkv6's
+    layout gate; (c) the cache workload through ``PoolServer`` over
+    granite, qwen2-moe and danube with the cache off and full.  Returns
+    the launches of (b) and (c)."""
+    from repro_torch.benchmarks import cache as cache_bench
+    from repro_torch.cache import GreenCache, PrefixCache
+    from repro_torch.core.pool import ModelPool
+    from repro_torch.core.router import GreenServRouter
+    from repro_torch.core.types import RouterConfig
+    from repro_torch.data import tokenizer as tok
+    from repro_torch.serving.engine import ModelEngine
+    from repro_torch.serving.scheduler import PoolServer
+
+    queries, arrivals = cache_bench.make_workload(CACHE_QUERIES, seed=0)
+    sub = {a: engines[a] for a in CACHE_ARCHS}
+
+    def router():
+        return GreenServRouter(RouterConfig(lam=0.4, energy_scale_wh=0.05),
+                               ModelPool([e.profile for e in sub.values()]),
+                               device=dev)
+
+    # (a) probe parity: one featurize launch a probe, labels and clusters
+    # equal to the host path's, embeddings within 1e-5
+    r = router()
+    r.route_batch(queries[:8])              # live centroids to assign to
+    cache = GreenCache(mode="full", kv_cache_blocks=CACHE_BLOCKS,
+                       semantic_threshold=CACHE_THRESHOLD)
+    cache.bind_context(r.context)
+    for q in CACHE_PROBE_Q:
+        texts = [x.text for x in queries[:q]]
+        reset_launches()
+        labels, clusters, embs = cache.features_batch(texts)
+        n = read_launches()["featurize"]
+        if n != 1:
+            raise AssertionError(f"(a) the probe at Q = {q} launched "
+                                 f"featurize {n} times, not once")
+        host = [cache.features(t) for t in texts]
+        err = float(np.abs(embs - np.stack([h[2] for h in host])).max())
+        if (labels.tolist() != [h[0] for h in host]
+                or clusters.tolist() != [h[1] for h in host]
+                or not err <= FEATURIZE_TOL):
+            raise AssertionError(f"(a) probe at Q = {q}: labels/clusters "
+                                 f"differ from the host path or embedding "
+                                 f"err {err} > {FEATURIZE_TOL}")
+        log("cache", f"(a) probe Q = {q}: one featurize launch; labels, "
+            f"clusters equal to the host features, embeddings max abs err "
+            f"{err:.3g}")
+    del r, cache
+    reset_launches()
+
+    # (b) warm vs cold in a one-slot engine on the serving weights
+    # the preamble (41 tokens with BOS) shares 5 whole 8-token blocks
+    pre = cache_bench.PREAMBLES[0]
+    if len(tok.encode(pre)) // 8 * 8 != CACHE_PREAMBLE:
+        raise AssertionError(f"the preamble is {len(tok.encode(pre))} "
+                             f"tokens: not {CACHE_PREAMBLE} in whole blocks")
+    other, prompt = (tok.encode(pre + tail) for tail in cache_bench.TAILS[:2])
+    for arch in CACHE_WARM_ARCHS:
+        src = engines[arch]
+        eng = ModelEngine(arch, src.cfg, max_batch=1, max_len=SERVE_MAX_LEN,
+                          params=src.params, prefill_chunk=SERVE_CHUNK,
+                          device=dev)
+        eng.set_prefix_cache(PrefixCache(max_blocks=CACHE_BLOCKS))
+        serve_one(eng, other, 0)            # cold; its blocks captured
+        warm, warm_logits = serve_one(eng, prompt, 1)
+        if warm.prefix_reused != CACHE_PREAMBLE:
+            raise AssertionError(f"(b) {arch}: spliced {warm.prefix_reused}"
+                                 f" tokens, not the {CACHE_PREAMBLE}-token "
+                                 f"preamble")
+        eng.set_prefix_cache(None)
+        cold, cold_logits = serve_one(eng, prompt, 2)
+        gap = float((warm_logits - cold_logits).abs().max())
+        if warm.tokens != cold.tokens or eng.nonfinite_ticks:
+            raise AssertionError(f"(b) {arch}: warm {warm.tokens} != cold "
+                                 f"{cold.tokens} (non-finite ticks "
+                                 f"{eng.nonfinite_ticks})")
+        log("cache", f"(b) {arch}: warm (spliced {warm.prefix_reused} "
+            f"tokens of {len(prompt)}) and cold generations identical "
+            f"{warm.tokens}; first token's logits max abs gap {gap:.4g} "
+            f"(range {float(cold_logits.abs().max()):.4g}); "
+            f"{eng.tick_counts} ticks, avoided "
+            f"{eng.cumulative_joules_avoided():.4f} J")
+        del eng
+    rwkv = engines[RWKV_ARCH]
+    rwkv.set_prefix_cache(PrefixCache(max_blocks=CACHE_BLOCKS))
+    if rwkv.prefix_cache is not None:
+        raise AssertionError(f"{RWKV_ARCH} took a prefix cache")
+    log("cache", f"(b) {RWKV_ARCH}: set_prefix_cache leaves it None "
+        f"(recurrent state takes no splice)")
+    launches = read_launches()
+
+    # (c) the cache workload through PoolServer, off then full
+    cards = {}
+    for mode in ("off", "full"):
+        r = router()
+        calls = []
+        route_batch = r.route_batch
+
+        def counted(qs, *args, **kwargs):
+            calls.append(len(qs))
+            return route_batch(qs, *args, **kwargs)
+
+        r.route_batch = counted
+        cache = GreenCache(mode=mode, kv_cache_blocks=CACHE_BLOCKS,
+                           semantic_threshold=CACHE_THRESHOLD)
+        server = PoolServer(r, sub, tokenizer=tok.encode,
+                            accuracy_fn=exact_match_accuracy,
+                            prefill_chunk=SERVE_CHUNK, cache=cache)
+        reset_launches()
+        t = time.perf_counter()
+        card = cache_bench.drive(server, queries, arrivals)
+        torch.cuda.synchronize()
+        card["wall_s"] = time.perf_counter() - t
+        got = read_launches()
+        routed = sum(n > 0 for n in calls)
+        if card["completed"] != len(queries):
+            raise AssertionError(f"(c) {mode}: {card['completed']}/"
+                                 f"{len(queries)} answered")
+        # off: route_batch featurizes ("both") and scores each batch;
+        # full: the probe is the batch's one featurize launch, and the
+        # decision takes its embeddings and labels (mode "none")
+        want = {"featurize": (routed if mode == "off"
+                              else card["admission_batches"]),
+                "linucb": routed}
+        if {k: got[k] for k in want} != want:
+            raise AssertionError(f"(c) {mode}: launches {got}, expected "
+                                 f"{want} ({card['admission_batches']} "
+                                 f"admission batches, {routed} routed)")
+        for k in ("featurize", "linucb", "moe_gating"):
+            launches[k] += got[k]
+        cards[mode] = card
+        log("cache", f"(c) {mode}: {card['completed']}/{len(queries)} "
+            f"answered in {card['steps']} steps ({card['wall_s']:.2f} s), "
+            f"{card['admission_batches']} admission batches, {routed} "
+            f"routed; semantic hits {card['semantic_hits']}, prefix hits "
+            f"{card['prefix_hits']} ({card['prefix_tokens_reused']} prompt "
+            f"tokens reused), metered {card['joules']:.4f} J, avoided "
+            f"{card['avoided_joules']:.4f} J, mean TTFT "
+            f"{card['ttft_steps_mean']:.3f} steps; launches "
+            f"{ {k: got[k] for k in ('featurize', 'linucb', 'moe_gating')} }")
+        for e in sub.values():
+            e.set_prefix_cache(None)
+        del server, cache, r
+    off, full = cards["off"], cards["full"]
+    if not (full["semantic_hits"] > 0 and full["prefix_hits"] > 0
+            and full["joules"] < off["joules"]):
+        raise AssertionError(f"(c) full mode: {full['semantic_hits']} "
+                             f"semantic hits, {full['prefix_hits']} prefix "
+                             f"hits, {full['joules']} J against off's "
+                             f"{off['joules']} J")
+    log("cache", f"(c) full vs off: metered joules x"
+        f"{full['joules'] / off['joules']:.4f} "
+        f"({100 * (1 - full['joules'] / off['joules']):.2f}% less; the JAX "
+        f"package's --smoke claims >= 30% on its smoke engines, not "
+        f"asserted at full width), mean TTFT {full['ttft_steps_mean']:.3f}"
+        f" vs {off['ttft_steps_mean']:.3f} steps")
+    gc.collect()
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -2529,6 +2892,9 @@ def main() -> int:
     launches, engines = serving_phase(dev)
     log("serve", f"phase {time.perf_counter() - t:.2f} s")
     t = time.perf_counter()
+    cached = cache_phase(dev, engines)
+    log("cache", f"phase {time.perf_counter() - t:.2f} s")
+    t = time.perf_counter()
     prefill = prefill_phase(dev, engines)
     del engines
     torch.cuda.empty_cache()
@@ -2573,11 +2939,14 @@ def main() -> int:
 
     kernels = [
         row("featurize", "featurize.cu", "featurize/kernel.py:37",
-            launches["featurize"] + paper["featurize"], feat["worst"], f1),
+            launches["featurize"] + paper["featurize"] + cached["featurize"],
+            feat["worst"], f1),
         row("linucb", "linucb.cu", "linucb/kernel.py:25",
-            launches["linucb"] + paper["linucb"], lin["worst"], l1),
+            launches["linucb"] + paper["linucb"] + cached["linucb"],
+            lin["worst"], l1),
         row("moe_gating", "moe_gating.cu", "moe_gating/kernel.py:23",
-            launches["moe_gating"], gate["worst"], g4),
+            launches["moe_gating"] + cached["moe_gating"], gate["worst"],
+            g4),
         row("flash_attention", "flash_attention.cu",
             "flash_attention/kernel.py:33",
             prefill["flash_attention"] + hybrid["flash_attention"]

@@ -4,11 +4,9 @@ outcome tables).
 
     PYTHONPATH=src python -m repro_torch.benchmarks.baselines [--per-task N]
 
-runs on the card (``--device cpu`` for the CPU).  The JAX package's
-``ctx-thompson`` row needs contextual Thompson sampling, which the port
-does not have yet: asking for it raises ``NotImplementedError``.  Its
-closed-loop drive (``run_closed_loop``) waits for the cache, cost-model
-and telemetry slices.
+runs on the card (``--device cpu`` for the CPU); ``--rows`` picks rows
+(e.g. ``--rows ctx-thompson``).  The JAX package's closed-loop drive
+(``run_closed_loop``) waits for the cost-model and telemetry slices.
 """
 from __future__ import annotations
 
@@ -30,11 +28,10 @@ STATIC_ROWS = {"largest (yi-34b)": "yi-34b",
                "smallest (qwen2.5-0.5b)": "qwen2.5-0.5b",
                "accuracy (gemma-3-27b)": "gemma-3-27b"}
 ROWS = (list(BANDIT_ROWS) + ["random"] + list(STATIC_ROWS))
-PORTED_ROWS = tuple(r for r in ROWS if r != "ctx-thompson")
 
 
 def run(per_task: int = 500, seed: int = 0, lam: float = 0.4,
-        rows: Sequence[str] = PORTED_ROWS,
+        rows: Sequence[str] = tuple(ROWS),
         device=None) -> Dict[str, RunResult]:
     unknown = set(rows) - set(ROWS)
     if unknown:
@@ -85,6 +82,8 @@ if __name__ == "__main__":
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="the routers' device (default: the card)")
+    ap.add_argument("--rows", nargs="+", default=ROWS, metavar="ROW",
+                    help=f"rows to run (default all: {', '.join(ROWS)})")
     args = ap.parse_args()
     print("\n".join(table(run(per_task=args.per_task, seed=args.seed,
-                              device=args.device))))
+                              rows=args.rows, device=args.device))))

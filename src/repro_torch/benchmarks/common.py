@@ -14,7 +14,8 @@ Every router here is built on ``device`` (None: the card);
 path when the device is CUDA).  The
 JAX package's closed-loop scenario drive (``run_scenario``, ``run_record``,
 ``ClosedLoopResult``) runs the cache, the cost model, telemetry and the
-governor, and waits for their slices of the port.
+governor, and waits for the port's cost-model and telemetry slices (the
+cache's own workload and drive are ``benchmarks/cache.py``).
 """
 from __future__ import annotations
 

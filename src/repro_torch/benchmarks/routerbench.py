@@ -6,10 +6,11 @@ and mean accuracy, as the paper reports them.
 
     PYTHONPATH=src python -m repro_torch.benchmarks.routerbench [--smoke]
 
-runs ``linucb`` and ``eps_greedy_ctx`` on the card (``--device cpu`` for
-the CPU).  The JAX package's closed loop over the same table
-(``run_closed_loop``) waits for the cache, cost-model and telemetry
-slices.
+runs ``linucb``, ``eps_greedy_ctx`` and ``cts`` (the JAX package's
+``greenserv-linucb``, ``ctx-eps-greedy`` and ``thompson`` rows) on the
+card (``--device cpu`` for the CPU).  The JAX package's closed loop over
+the same table (``run_closed_loop``) waits for the cost-model and
+telemetry slices.
 """
 from __future__ import annotations
 
@@ -23,7 +24,10 @@ from repro_torch.core.types import Feedback, ModelProfile, Query, RouterConfig
 from repro_torch.data.routerbench import (RouterBenchTable, aiq, build_table,
                                           query_text)
 
-ALGORITHMS = ("linucb", "eps_greedy_ctx")
+ALGORITHMS = ("linucb", "eps_greedy_ctx", "cts")
+# the JAX package's row names (benchmarks/bench_routerbench.py)
+ROW_NAMES = {"linucb": "greenserv-linucb", "eps_greedy_ctx": "ctx-eps-greedy",
+             "cts": "thompson"}
 
 
 def _rb_config(lam: float, algorithm: str, seed: int,
@@ -111,5 +115,5 @@ if __name__ == "__main__":
     for algo in ALGORITHMS:
         r = run_algorithm(algo, n_per_task=n, seed=args.seed,
                           device=args.device)
-        print(f"{algo},{r['aiq']:.4f},{r['peak_acc']:.4f},"
+        print(f"{ROW_NAMES[algo]},{r['aiq']:.4f},{r['peak_acc']:.4f},"
               f"{r['avg_acc']:.4f}")

@@ -1,26 +1,35 @@
 """Contextual multi-armed bandits (paper §4.3) over tensors.
 
-Two of the paper's policies:
+The paper's three policies:
 
-  * LinUCB (primary, Eq. 13)   — linear reward model + UCB exploration
-  * ε-greedy (contextual & plain) — decayed random exploration
+  * LinUCB (primary, Eq. 13)        — linear reward model + UCB exploration
+  * Contextual Thompson sampling    — Bayesian linear posterior sampling
+  * ε-greedy (contextual & plain)   — decayed random exploration
 
 All state lives in one ``BanditState`` with *static* arm capacity
 (``max_arms``) and an ``active`` mask, so models added at runtime never
 change a tensor's shape (paper §6.3.4: zero-calibration addition).
 
-A_m⁻¹ is maintained directly by the rank-1 Sherman–Morrison identity —
-O(d²) per update and O(|M|·d²) per decision, mathematically identical to
-inverting A_m.  Scoring runs the ``kernels/linucb`` kernel over the
-maintained inverses.  The updates write the state tensors in place (the
-JAX package replaces its arrays and donates the old buffers; here the one
-copy on the device is simply overwritten).
+Two solve modes:
 
-ε-greedy draws from the policy's key through ``core/prng.py``, the JAX
-package's Threefry stream on the host, so its explorations are the JAX
-package's, draw for draw.  Contextual Thompson sampling and the
-paper-faithful Cholesky solve mode are not ported: selecting them raises
-``NotImplementedError``.
+  * ``sherman_morrison`` (default): A_m⁻¹ is maintained directly by the
+    rank-1 Sherman–Morrison identity — O(d²) per update and O(|M|·d²)
+    per decision, mathematically identical to inverting A_m.  LinUCB
+    scores through the ``kernels/linucb`` kernel over the maintained
+    inverses.
+  * ``cholesky`` (paper-faithful, App. B): A_m is factored per decision
+    and θ̂_m and A_m⁻¹x are solved from the factor — O(|M|·d³), kept for
+    the §Perf comparison.  It runs in plain PyTorch on the state's
+    device, as the JAX package runs it in plain jnp.
+
+The updates write the state tensors in place (the JAX package replaces
+its arrays and donates the old buffers; here the one copy on the device
+is simply overwritten).
+
+The stochastic policies draw from the policy's key through
+``core/prng.py``, the JAX package's Threefry stream on the host, so
+their draws are the JAX package's, draw for draw: ε-greedy's uniform
+and choice, and CTS's ``normal(k_sel, (M, d))``.
 """
 from __future__ import annotations
 
@@ -36,20 +45,16 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels.linucb import linucb_scores as linucb_scores_kernel
 
 NEG_INF = -1e30
-ALGORITHMS = ("linucb", "eps_greedy", "eps_greedy_ctx")
+ALGORITHMS = ("linucb", "cts", "eps_greedy", "eps_greedy_ctx")
+SOLVE_MODES = ("sherman_morrison", "cholesky")
 
 
 def check_supported(config: RouterConfig) -> None:
-    """Raise for the policies the port does not have yet (CTS, the
-    Cholesky solve mode) and for names no package knows."""
-    if config.algorithm == "cts" or config.solve_mode != "sherman_morrison":
-        raise NotImplementedError(
-            f"algorithm={config.algorithm!r} solve_mode={config.solve_mode!r}"
-            f": CTS and the Cholesky solve mode wait for the port's "
-            f"policies slice; the port serves LinUCB and ε-greedy with "
-            f"Sherman–Morrison inverses")
+    """Raise ValueError for an algorithm or solve mode no package knows."""
     if config.algorithm not in ALGORITHMS:
         raise ValueError(f"unknown algorithm {config.algorithm!r}")
+    if config.solve_mode not in SOLVE_MODES:
+        raise ValueError(f"unknown solve_mode {config.solve_mode!r}")
 
 
 class BanditState(NamedTuple):
@@ -120,6 +125,37 @@ def linucb_scores_batch(state: BanditState, X: torch.Tensor,
     return linucb_scores_kernel(state.A_inv, state.theta, X, alpha)
 
 
+def linucb_scores_cholesky(state: BanditState, X: torch.Tensor,
+                           alpha: float) -> torch.Tensor:
+    """Eq. 13 by the paper-faithful solve (App. B), (Q, d) → (Q, M):
+    factor A_m = L Lᵀ, θ̂_m = A_m⁻¹ b_m and A_m⁻¹x by two triangular
+    solves each, θ̂_mᵀx + α·sqrt(max(xᵀA_m⁻¹x, 0)).  Selection changes no
+    statistic, so one factor serves every row of a batch; each row's
+    scores are those of its own sequential decision."""
+    chol = torch.linalg.cholesky(state.A)                        # (M, d, d)
+    theta = torch.cholesky_solve(state.b[:, :, None], chol)[:, :, 0]
+    rhs = X.T[None].expand(chol.shape[0], -1, -1)                # (M, d, Q)
+    ainv_x = torch.cholesky_solve(rhs, chol)                     # (M, d, Q)
+    mean = X @ theta.T                                           # (Q, M)
+    var = torch.clamp(torch.einsum("mdq,qd->qm", ainv_x, X), min=0.0)
+    return mean + alpha * torch.sqrt(var)
+
+
+def thompson_scores(state: BanditState, X: torch.Tensor, z: torch.Tensor,
+                    sigma: float) -> torch.Tensor:
+    """Contextual Thompson sampling (Agrawal & Goyal 2013), (Q, d) → (Q, M):
+    each row draws θ̃_m = θ̂_m + σ·chol(A_m⁻¹ + 1e-8 I) z_m from its own
+    standard normals ``z`` (Q, M, d) and scores θ̃_mᵀx.  The factor maps
+    N(0, I) to N(0, A_m⁻¹); it is taken once for the batch (selection
+    changes no statistic)."""
+    d = state.theta.shape[1]
+    eye = torch.eye(d, dtype=state.A_inv.dtype, device=state.A_inv.device)
+    chol = torch.linalg.cholesky(state.A_inv + 1e-8 * eye[None])  # (M, d, d)
+    theta_s = state.theta[None] + sigma * torch.einsum("mij,qmj->qmi",
+                                                       chol, z)
+    return torch.einsum("qmi,qi->qm", theta_s, X)
+
+
 def greedy_scores(state: BanditState, X: torch.Tensor,
                   contextual: bool) -> torch.Tensor:
     """ε-greedy's exploitation scores, (Q, d) contexts → (Q, M): θ̂_m·x
@@ -179,8 +215,9 @@ class BanditPolicy:
         LinUCB with maintained inverses is deterministic, so the whole
         batch is scored by one kernel call and an argmax per row (ties to
         the lowest index) — arm choices are identical to Q sequential
-        selections on the same state.  ε-greedy keeps sequential
-        per-query semantics (``_select_eps_greedy``)."""
+        selections on the same state.  The other policies (CTS, ε-greedy)
+        and the Cholesky mode keep sequential per-query semantics
+        (``_select_sequential``)."""
         check_supported(self.config)
         X = np.asarray(X, dtype=np.float32)
         feas = np.asarray(feasible, dtype=bool)
@@ -191,8 +228,9 @@ class BanditPolicy:
         if feas.shape[1] < m:
             feas = np.pad(feas, ((0, 0), (0, m - feas.shape[1])))
         x_dev = torch.from_numpy(X).to(self.device)
-        if self.config.algorithm != "linucb":
-            return self._select_eps_greedy(x_dev, feas)
+        if (self.config.algorithm != "linucb"
+                or self.config.solve_mode != "sherman_morrison"):
+            return self._select_sequential(x_dev, feas)
         scores = linucb_scores_batch(self.state, x_dev,
                                      self.config.alpha_ucb)
         mask = self.state.active.cpu().numpy()[None, :] & feas
@@ -201,39 +239,57 @@ class BanditPolicy:
         self.advance_key()
         return arms.astype(np.int64), masked.astype(np.float32)
 
-    def _select_eps_greedy(self, x_dev: torch.Tensor, feas: np.ndarray
+    def _select_sequential(self, x_dev: torch.Tensor, feas: np.ndarray
                            ) -> Tuple[np.ndarray, np.ndarray]:
-        """ε-greedy over a batch, row by row as the JAX package's scan
+        """A batch, row by row as the JAX package's scan
         (``make_select_batch_scan_fn``): each row splits the key into
-        (key, k_sel, k_eps), draws a uniform feasible arm from k_sel, and
-        explores when a uniform draw from k_eps falls below ε; otherwise
-        it takes the greedy arm (ties to the lowest index).  Selection
-        changes no statistic, so ε and the scores are the same for every
-        row, and Q rows leave the key where Q sequential selections
-        would.
+        (key, k_sel, k_eps), so Q rows leave the key where Q sequential
+        selections would, whatever the policy.
 
-        The greedy scores are computed on the router's device, where the
-        state lives; per batch the (Q, M) scores, the (M,) active mask
-        and ε cross to the host, as the LinUCB path reads its scores and
-        mask.  The draws run on the host (``core/prng.py``), and only the
-        host key changes."""
-        st = self.state
-        scores = greedy_scores(
-            st, x_dev, self.config.algorithm == "eps_greedy_ctx")
+          * LinUCB (Cholesky mode): the paper-faithful scores, argmax;
+          * CTS: standard normals ``normal(k_sel, (M, d))``, the sampled
+            posterior's scores, argmax;
+          * ε-greedy: a uniform feasible arm from k_sel, taken when a
+            uniform draw from k_eps falls below ε; otherwise the greedy
+            arm.
+
+        Argmaxes tie to the lowest index.  Selection changes no
+        statistic, so the factors, ε and the deterministic scores are the
+        same for every row, and the rows' draws are made in one host call
+        after their keys.  The scores are computed on the router's
+        device, where the state lives; per batch the (Q, M) scores, the
+        (M,) active mask and ε cross to the host, as the LinUCB path
+        reads its scores and mask; CTS's draws go up as one (Q, M, d)
+        tensor.  Only the host key changes."""
+        st, cfg = self.state, self.config
+        q = x_dev.shape[0]
+        key = st.key
+        k_sel = np.empty((q, 2), np.uint32)
+        k_eps = np.empty((q, 2), np.uint32)
+        for i in range(q):
+            key, k_sel[i], k_eps[i] = prng.split(key, 3)
+        if cfg.algorithm == "cts":
+            z = prng.normal(k_sel, tuple(st.theta.shape))      # (Q, M, d)
+            scores = thompson_scores(st, x_dev,
+                                     torch.from_numpy(z).to(self.device),
+                                     cfg.cts_sigma)
+        elif cfg.algorithm == "linucb":
+            scores = linucb_scores_cholesky(st, x_dev, cfg.alpha_ucb)
+        else:
+            scores = greedy_scores(st, x_dev,
+                                   cfg.algorithm == "eps_greedy_ctx")
         mask = st.active.cpu().numpy()[None, :] & feas
         masked = np.where(mask, scores.cpu().numpy(),
                           NEG_INF).astype(np.float32)
-        eps = np.float32(st.eps.cpu().numpy())
-        m = masked.shape[1]
-        key = st.key
-        arms = np.empty(masked.shape[0], np.int64)
-        for i, (row, row_mask) in enumerate(zip(masked, mask)):
-            key, k_sel, k_eps = prng.split(key, 3)
-            probs = (row_mask.astype(np.float32)
-                     / np.float32(max(int(row_mask.sum()), 1)))
-            rand_arm = prng.choice(k_sel, m, probs)
-            explore = prng.uniform(k_eps) < eps
-            arms[i] = rand_arm if explore else int(np.argmax(row))
+        arms = np.argmax(masked, axis=1).astype(np.int64)
+        if cfg.algorithm in ("eps_greedy", "eps_greedy_ctx"):
+            eps = np.float32(st.eps.cpu().numpy())
+            m = masked.shape[1]
+            for i, row_mask in enumerate(mask):
+                if prng.uniform(k_eps[i]) < eps:
+                    probs = (row_mask.astype(np.float32)
+                             / np.float32(max(int(row_mask.sum()), 1)))
+                    arms[i] = prng.choice(k_sel[i], m, probs)
         self.state = st._replace(key=key)
         return arms, masked
 

@@ -19,7 +19,10 @@ implementation) and the device path, whose pieces live here —
 by row in arrival order on the device, and ``kmeans_assign_batch`` is the
 read-only assignment.  The router composes them with the
 ``kernels/featurize`` and ``kernels/linucb`` kernels into one decision
-function; the two placements agree exactly.
+function; the two placements agree exactly.  The cache's read-only
+admission probe (``ContextGenerator.probe_batch`` → ``_probe_pipeline``)
+runs the featurize kernel, the classifier logits and
+``kmeans_assign_batch`` the same way, and writes no state.
 """
 from __future__ import annotations
 
@@ -34,6 +37,7 @@ from repro_torch.core.embedding import EmbeddingModel, tokenize
 from repro_torch.core.residency import TransferLedger
 from repro_torch.core.types import ContextVector, N_TASKS, RouterConfig
 from repro_torch.device import resolve_device, sync
+from repro_torch.kernels.featurize import hashed_embed
 from repro_torch.kernels.featurize.ops import pad_pow2
 
 # ---------------------------------------------------------------------------
@@ -353,6 +357,27 @@ def kmeans_assign_batch(centroids, initialized, embs):
     return torch.argmax(sims, dim=1).to(torch.int32)
 
 
+def _probe_pipeline(ids, weights, proj, w, b, centroids, initialized, *,
+                    n: int, use_task: bool, use_cluster: bool):
+    """Read-only probe: featurize (the full texts, plus the instruction
+    slices when the task feature is on, stacked into one call of the
+    featurize kernel's wrapper — the kernel on the card, its plain
+    version on the CPU) → classifier logits → Eq. 9 assignment.  ``n``
+    is the padded row count of each half.  No state is written."""
+    e = hashed_embed(ids, weights, proj)
+    emb, emb_i = e[:n], e[n:]
+    dev = e.device
+    if use_task:
+        labels = torch.argmax(emb_i @ w + b, dim=1).to(torch.int32)
+    else:
+        labels = torch.zeros((n,), dtype=torch.int32, device=dev)
+    if use_cluster:
+        clusters = kmeans_assign_batch(centroids, initialized, emb)
+    else:
+        clusters = torch.zeros((n,), dtype=torch.int32, device=dev)
+    return labels, clusters, emb
+
+
 def _pad_cols(a: np.ndarray, width: int, fill) -> np.ndarray:
     """Right-pad a (Q, L) feature tensor to L=width (stacking full-text and
     instruction rows into one kernel call needs a common L)."""
@@ -648,6 +673,43 @@ class ContextGenerator:
         self.timings_ms["featurize"] += featurize_ms
         self.timings_ms["complexity"] += complexity_ms
         self.timings_ms["n"] += n
+
+    def probe_batch(self, texts: Sequence[str]
+                    ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """Read-only batched features for cache probes: (task labels,
+        cluster assignments, unit embeddings), one featurization pass for
+        the whole batch.  Mutates nothing — classifier ``predict`` and
+        k-means ``assign`` semantics; Eq. 10 updates stay exclusive to
+        routing.  On the device path this is one ``_probe_pipeline`` call
+        (one featurize launch) whose embeddings the router then reuses
+        (the query is embedded once per lifecycle)."""
+        n = len(texts)
+        if n == 0:
+            z = np.zeros(0, dtype=np.int64)
+            return z, z.copy(), np.zeros((0, self.embedder.dim), np.float32)
+        if not self.device_active:
+            embs = self.embedder.encode_batch(texts)
+            labels = (self.task_classifier.predict_batch(texts)
+                      if self.use_task else np.zeros(n, dtype=np.int64))
+            clusters = (np.asarray([self.kmeans.assign(e) for e in embs],
+                                   dtype=np.int64) if self.use_cluster
+                        else np.zeros(n, dtype=np.int64))
+            return labels, clusters, embs
+        # Q and L padded to powers of two, the layout of the router's
+        # device path (padding rows are read-only garbage, sliced off)
+        dev = self.device
+        q_pad = pad_pow2(n)
+        ids, weights = self.padded_feature_tensors(
+            texts, want_full=True, want_instr=self.use_task, q_pad=q_pad)
+        cent, _, ini = self.kmeans.device_state()
+        w, b = self.classifier_params()
+        labels, clusters, emb = _probe_pipeline(
+            torch.from_numpy(ids).to(dev), torch.from_numpy(weights).to(dev),
+            self.embedder.proj_device(dev), w, b, cent, ini, n=q_pad,
+            use_task=self.use_task, use_cluster=self.use_cluster)
+        return (labels.cpu().numpy().astype(np.int64)[:n],
+                clusters.cpu().numpy().astype(np.int64)[:n],
+                emb.cpu().numpy()[:n])
 
     def mean_overhead_ms(self) -> dict:
         n = max(self.timings_ms["n"], 1)

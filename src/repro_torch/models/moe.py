@@ -120,10 +120,29 @@ def _dispatch(params: MoE, xg: torch.Tensor, cfg: ModelConfig,
     contrib = torch.gather(
         flat_out, 1, slot.clamp(max=e * c - 1)[..., None].expand(-1, -1, d)
     ) * (sorted_weight * keep).to(dt)[..., None]
-    rows = (sorted_token + torch.arange(g, device=dev)[:, None] * t)
-    out = torch.zeros((g * t, d), dtype=dt, device=dev)
-    out.index_add_(0, rows.reshape(-1), contrib.reshape(-1, d))
-    return out.reshape(g, t, d), aux
+    return _combine(contrib, order, t, k), aux
+
+
+def _combine(contrib: torch.Tensor, order: torch.Tensor, t: int,
+             k: int) -> torch.Tensor:
+    """The reference's scatter-add of the sorted contributions (G, t·k, d)
+    back to their tokens (``zeros.at[sorted_token].add``), deterministic
+    on every device: each token's k contributions are added one after
+    another in fp32, in the order the sorted array holds them (ascending
+    expert), and rounded once to the model's dtype — what ``index_add_``
+    computes on the CPU, bit for bit.  On CUDA ``index_add_`` adds them
+    with atomics in whatever order they land (in bf16, rounding at each
+    add), so the same input could give different outputs from run to
+    run."""
+    g, _, d = contrib.shape
+    pos = torch.argsort(order, dim=-1).reshape(g, t, k)   # sorted position
+    pos = torch.sort(pos, dim=-1).values                  # of each choice
+    parts = torch.gather(contrib, 1, pos.reshape(g, t * k)[..., None]
+                         .expand(-1, -1, d)).reshape(g, t, k, d)
+    out = torch.zeros((g, t, d), dtype=torch.float32, device=contrib.device)
+    for j in range(k):
+        out = out + parts[:, :, j].float()
+    return out.to(contrib.dtype)
 
 
 def moe_block(params: MoE, x: torch.Tensor, cfg: ModelConfig,

@@ -37,9 +37,14 @@ state, and idle slots feed token 0 through ``serve_step`` and drift.
 That is a fault of the reference, reproduced on purpose so both packages
 generate the same tokens (ROADMAP C).
 
-The engines are unified: prefix-KV splice/capture (``ModelEngine``'s,
-and ``SimEngine.set_prefix_cache``) and the disaggregated prefill/decode
-roles wait for the port's cache and disaggregation slices.
+Cross-query prefix-KV reuse (``set_prefix_cache``, GreenCache's prefix
+layer): a dense or MoE engine splices the longest cached prompt prefix
+into a newly admitted slot (host → card) and prefills only the suffix;
+a finished prompt's whole blocks are captured (card → host) into the
+engine's ``PrefixCache``.  The avoided prefill is credited on the
+engine's ledger (``cumulative_joules_avoided``), never un-spent.  The
+engines are unified: the disaggregated prefill/decode roles wait for the
+port's disaggregation slice.
 """
 from __future__ import annotations
 
@@ -50,6 +55,7 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch.cache.prefix import PrefixCache
 from repro_torch.core.energy import (CostModelParams, EnergyMonitor,
                                      JOULES_PER_WH, chunk_rider_cost,
                                      decode_step_cost, energy_joules,
@@ -104,6 +110,11 @@ class BaseEngine:
     def set_prefill_chunk(self, n: int) -> None:
         """Prompt tokens consumed per prefill tick (1 = token-wise path)."""
 
+    def set_prefix_cache(self, cache: Optional[PrefixCache]) -> None:
+        """Attach a ``PrefixCache`` for cross-query prompt-KV reuse.
+        No-op for engines without a materialized KV cache; real engines
+        override and gate on layout support."""
+
     def cumulative_joules(self) -> float:
         """Cumulative metered energy in joules."""
         return 0.0
@@ -112,6 +123,15 @@ class BaseEngine:
         """Cumulative metered joules split by serving phase ("prefill" /
         "decode"); the values sum to ``cumulative_joules()``."""
         return {"prefill": 0.0, "decode": self.cumulative_joules()}
+
+    def cumulative_joules_avoided(self) -> float:
+        """Cumulative modeled joules *not* spent thanks to prefix-KV
+        reuse (the prefill work a spliced prefix replaced)."""
+        return 0.0
+
+    def prefix_hit_count(self) -> int:
+        """Admissions that spliced a cached prefix."""
+        return 0
 
     # -- fault-tolerance hooks -------------------------------------------------
 
@@ -180,14 +200,65 @@ class ModelEngine(BaseEngine):
         self.prefill_chunk = 1
         self.set_prefill_chunk(prefill_chunk)
         self._modeled_time_s = 0.0
+        # cross-query prefix-KV reuse: attached by the scheduler's
+        # _configure_engine; None = recompute every prompt
+        self.prefix_cache: Optional[PrefixCache] = None
+        self._avoided_joules = 0.0
+        self._prefix_hits = 0
+
+    def _full_depth_kv(self) -> bool:
+        """The layout has a full-depth positional KV cache, which is what
+        a chunk slab at an offset and a spliced prefix need."""
+        return api.supports_chunked_prefill(self.cfg) and "k" in self.cache
 
     def set_prefill_chunk(self, n: int) -> None:
         """Set the prompt tokens consumed per prefill tick.  Clamped to 1
         when the architecture can't take a slab at an offset."""
         n = max(int(n), 1)
-        if not (api.supports_chunked_prefill(self.cfg) and "k" in self.cache):
+        if not self._full_depth_kv():
             n = 1
         self.prefill_chunk = n
+
+    def set_prefix_cache(self, cache: Optional[PrefixCache]) -> None:
+        """Attach (or detach, with None) a prefix-KV cache.  Only layouts
+        whose decode cache can take a spliced slab participate — the same
+        full-depth positional-KV gate as chunked prefill; ring-buffer and
+        recurrent layouts silently keep recomputing their prompts."""
+        if cache is not None and not self._full_depth_kv():
+            cache = None
+        self.prefix_cache = cache
+
+    def cumulative_joules_avoided(self) -> float:
+        return self._avoided_joules
+
+    def prefix_hit_count(self) -> int:
+        return self._prefix_hits
+
+    def _prefill_joules(self, n_tokens: int, kv_start: int = 0) -> float:
+        """Modeled joules the engine would spend prefilling ``n_tokens``
+        prompt tokens starting at cache offset ``kv_start`` at its current
+        chunk setting (``_meter_step``'s charging rule: slabs > 1 token
+        cost ``prefill_chunk_cost``, single tokens ``decode_step_cost``).
+        With kv_start=0 this is the exact work a spliced prefix of that
+        length avoids; with kv_start=p it is the work the uncached suffix
+        still costs."""
+        C = max(self.prefill_chunk, 1)
+        joules, kv = 0.0, kv_start
+        end = kv_start + n_tokens
+        while kv < end:
+            n = min(C, end - kv)
+            if n > 1:
+                f, b = prefill_chunk_cost(self.cost_params, n, kv)
+            else:
+                f, b = decode_step_cost(self.cost_params, max(kv + n, 1))
+            joules += energy_joules(roofline(f, b, 0.0, self.energy.chips))
+            kv += n
+        return joules
+
+    def estimate_prefill_wh(self, n_tokens: int) -> float:
+        """Expected Wh saved by an ``n_tokens`` prefix hit (the router
+        discount's units)."""
+        return self._prefill_joules(n_tokens) / JOULES_PER_WH
 
     def _read_next(self, last_logits: torch.Tensor) -> np.ndarray:
         """Greedy next tokens (B,) from (B, V) logits — ties to the lowest
@@ -231,6 +302,27 @@ class ModelEngine(BaseEngine):
                 self.cache["length"][i] = 0
                 req.state = RequestState.PREFILL
                 req.start_s = time.monotonic()
+                if self.prefix_cache is not None:
+                    self._splice_prefix(i, req)
+
+    def _splice_prefix(self, slot: int, req: Request) -> None:
+        """Reuse the longest cached KV prefix for a newly admitted prompt.
+
+        Keeps >= 1 prompt token to feed (the final token's forward pass
+        produces the first-generation logits), so the cap is
+        ``len(prompt) - 1``.  The splice (host → card) sets the slot
+        length to the reused depth; prefill then continues from that
+        offset, and the avoided prefill work is credited to the engine's
+        avoided-joules ledger."""
+        p, k_blk, v_blk = self.prefix_cache.match(
+            req.prompt_tokens, max_tokens=len(req.prompt_tokens) - 1)
+        if p <= 0:
+            return
+        self.cache = api.splice_prefix(self.cache, slot, k_blk, v_blk)
+        req.n_prompt_fed = p
+        req.prefix_reused = p
+        self._prefix_hits += 1
+        self._avoided_joules += self._prefill_joules(p)
 
     # -- the continuous-batching step ---------------------------------------------
 
@@ -414,11 +506,13 @@ class ModelEngine(BaseEngine):
 
     def _finish(self, slot: int) -> Response:
         req = self.slots[slot]
+        self._capture_prefix(slot, req)
         self.slots[slot] = None
         req.state = RequestState.DONE
         req.finish_s = time.monotonic()
         out = [t for t in req.generated if t != req.eos_id]
-        pre_wh, dec_wh = self._query_wh(len(req.prompt_tokens), len(out))
+        pre_wh, dec_wh = self._query_wh(len(req.prompt_tokens),
+                                        req.prefix_reused, len(out))
         ttft_ms = ((req.first_token_s - req.submit_s) * 1e3
                    if req.first_token_s else 0.0)
         return Response(
@@ -430,11 +524,19 @@ class ModelEngine(BaseEngine):
             ttft_ms=ttft_ms, prefix_reused=req.prefix_reused,
             kv_migrated=req.kv_migrated, prefill_wh=pre_wh)
 
-    def _query_wh(self, n_prompt: int, n_out: int) -> tuple:
+    def _query_wh(self, n_prompt: int, reused: int, n_out: int) -> tuple:
         """Per-query (prefill Wh, decode Wh) of record; the sum is what
-        ``measure_query`` charges.  The bandit feedback sees this spend."""
-        f, b = prefill_cost(self.cost_params, max(n_prompt, 1))
-        pre_j = energy_joules(roofline(f, b, 0.0, self.energy.chips))
+        ``measure_query`` charges.  Cold queries keep its terms exactly.
+        With a spliced prefix, the prefill term covers only the uncached
+        suffix (charged at its true cache offsets) while decode is still
+        charged at *full* context depth — prefix reuse avoids prefill
+        work, never decode work.  The bandit feedback sees this spend."""
+        if reused <= 0:
+            f, b = prefill_cost(self.cost_params, max(n_prompt, 1))
+            pre_j = energy_joules(roofline(f, b, 0.0, self.energy.chips))
+        else:
+            pre_j = self._prefill_joules(max(n_prompt - reused, 1),
+                                         kv_start=reused)
         mid_kv = n_prompt + max(n_out, 1) // 2
         f, b = decode_step_cost(self.cost_params, mid_kv)
         dec_j = max(n_out, 0) * energy_joules(
@@ -443,6 +545,25 @@ class ModelEngine(BaseEngine):
         self.energy.total_joules += pre_j + dec_j
         self.energy.n_queries += 1
         return pre_j / JOULES_PER_WH, dec_j / JOULES_PER_WH
+
+    def _capture_prefix(self, slot: int, req: Request) -> None:
+        """Register a finished prompt's KV with the prefix cache.  The
+        prompt region [0, n_prompt) of the slot cache is still intact at
+        finish time (decode appends strictly after it), so the capture is
+        one card → host copy of k and v in the cache's dtype; whole blocks
+        only (tail rounding lives in ``PrefixCache.insert``)."""
+        n_p = len(req.prompt_tokens)
+        if (self.prefix_cache is None
+                or n_p < self.prefix_cache.block_tokens
+                or req.n_prompt_fed < n_p
+                or n_p > self.max_len - 1):
+            # the last guard: a prompt that overflowed the slot cache has
+            # KV positions >= max_len that were never written — nothing
+            # trustworthy to capture
+            return
+        k = self.cache["k"][:, slot, :n_p].to("cpu")
+        v = self.cache["v"][:, slot, :n_p].to("cpu")
+        self.prefix_cache.insert(req.prompt_tokens, k, v)
 
     def restart(self) -> List[Request]:
         # defunct (cancelled/timed-out/failed) requests are dropped, not
@@ -456,6 +577,7 @@ class ModelEngine(BaseEngine):
             r.slot = -1
             r.generated = []
             r.n_prompt_fed = 0
+            r.prefix_reused = 0          # re-splices on re-admission
             r.first_token_s = 0.0
         self.slots = [None] * self.max_batch
         self.queue = []
@@ -486,12 +608,12 @@ class SimEngine(BaseEngine):
         vs decode by per-token weights mirroring the calibrated tables'
         marginal costs, feeding ``cumulative_joules_by_phase`` and
         ``Response.prefill_wh`` like the real engine;
+      * prefix-KV reuse is modeled with the *real* ``PrefixCache`` radix
+        trie (token-level matching, LRU eviction) — a hit discounts the
+        avoided prefill share from the query's spend and credits the
+        avoided-joules ledger, never un-spending energy;
       * ``modeled_time_s`` advances by the slowest active request's
         per-step latency share, so virtual-clock drives can diff it.
-
-    The JAX package's prefix-KV reuse model (a ``PrefixCache`` probe at
-    activation, the avoided-prefill credit, ``estimate_prefill_wh``)
-    comes with the port's cache slice.
     """
 
     # prefill/decode per-token Wh weights for the phase split; the ratio
@@ -520,6 +642,12 @@ class SimEngine(BaseEngine):
         self._outcomes: Dict[int, tuple] = {}
         self._phase_joules = {"prefill": 0.0, "decode": 0.0}
         self._modeled_time_s = 0.0
+        self.prefix_cache: Optional[PrefixCache] = None
+        self._avoided_joules = 0.0
+        self._prefix_hits = 0
+        # EWMA of observed cold prefill Wh per prompt token, backing
+        # estimate_prefill_wh (a cold engine offers no discount)
+        self._prefill_wh_per_token: Optional[float] = None
 
     def submit(self, req: Request) -> None:
         req.model_name = self.name
@@ -533,10 +661,10 @@ class SimEngine(BaseEngine):
     def free_capacity(self) -> int:
         return max(0, self.concurrency - len(self.queue))
 
-    def set_prefix_cache(self, cache) -> None:
-        raise NotImplementedError(
-            "SimEngine.set_prefix_cache waits for the port's cache slice "
-            "(its PrefixCache)")
+    def set_prefix_cache(self, cache: Optional[PrefixCache]) -> None:
+        """Attach a PrefixCache; the sim models a full-depth positional KV
+        layout, so there is no layout gate."""
+        self.prefix_cache = cache
 
     def cumulative_joules(self) -> float:
         return self._phase_joules["prefill"] + self._phase_joules["decode"]
@@ -544,8 +672,20 @@ class SimEngine(BaseEngine):
     def cumulative_joules_by_phase(self) -> Dict[str, float]:
         return dict(self._phase_joules)
 
+    def cumulative_joules_avoided(self) -> float:
+        return self._avoided_joules
+
+    def prefix_hit_count(self) -> int:
+        return self._prefix_hits
+
     def modeled_time_s(self) -> float:
         return self._modeled_time_s
+
+    def estimate_prefill_wh(self, n_tokens: int) -> float:
+        """Expected Wh an ``n_tokens`` prefix hit saves, from the observed
+        per-token prefill EWMA (0 until the first completion calibrates it
+        — a cold cache offers no routing discount)."""
+        return (self._prefill_wh_per_token or 0.0) * max(n_tokens, 0)
 
     def _phase_split(self, n_in: int, n_out: int) -> float:
         """Prefill fraction of a completion's energy, by token-weighted
@@ -555,12 +695,20 @@ class SimEngine(BaseEngine):
         return pre / max(pre + dec, 1e-12)
 
     def _activate(self, req: Request) -> tuple:
-        """First service step for a request: stamp start, draw + pin the
-        outcome."""
+        """First service step for a request: stamp start, probe the prefix
+        cache (the modeled splice — ``match`` LRU-touches the chain like a
+        real admission), and draw + pin the outcome."""
         if req.start_s == 0.0:
             req.start_s = self.clock()
         outcome = self._outcomes.get(req.uid)
         if outcome is None:
+            if (self.prefix_cache is not None and req.prefix_reused == 0
+                    and len(req.prompt_tokens) > 1):
+                p, _, _ = self.prefix_cache.match(
+                    req.prompt_tokens, max_tokens=len(req.prompt_tokens) - 1)
+                if p > 0:
+                    req.prefix_reused = p
+                    self._prefix_hits += 1
             # state stays QUEUED while in service (a sim "slot" has no
             # prefill/decode sub-lifecycle), so a slow head-of-queue
             # request is still hedgeable, as on the real engine
@@ -571,10 +719,30 @@ class SimEngine(BaseEngine):
     def _finish(self, req: Request, outcome: tuple) -> Response:
         acc, energy_wh, latency_ms, out_tokens = outcome
         n_in = len(req.prompt_tokens)
-        pre_wh = energy_wh * self._phase_split(n_in, out_tokens)
-        dec_wh = energy_wh - pre_wh
+        pre_wh_cold = energy_wh * self._phase_split(n_in, out_tokens)
+        dec_wh = energy_wh - pre_wh_cold
+        avoided_wh = 0.0
+        if req.prefix_reused > 0 and n_in > 0:
+            # the spliced share of the prompt was never prefilled: its
+            # energy is avoided (credited, not un-spent) and the query's
+            # Wh of record covers only the uncached suffix + decode
+            avoided_wh = pre_wh_cold * min(req.prefix_reused / n_in, 1.0)
+            self._avoided_joules += avoided_wh * JOULES_PER_WH
+        pre_wh = pre_wh_cold - avoided_wh
         self._phase_joules["prefill"] += pre_wh * JOULES_PER_WH
         self._phase_joules["decode"] += dec_wh * JOULES_PER_WH
+        if n_in > 0:
+            sample = pre_wh_cold / n_in
+            self._prefill_wh_per_token = (
+                sample if self._prefill_wh_per_token is None
+                else 0.8 * self._prefill_wh_per_token + 0.2 * sample)
+        if (self.prefix_cache is not None
+                and n_in >= self.prefix_cache.block_tokens):
+            # register the completed prompt; the sim has no real KV, so
+            # placeholder blocks stand in (matching is token-exact either
+            # way, and capacity/eviction behave like the real pool)
+            kv = torch.zeros((1, n_in, 1, 1), dtype=torch.float32)
+            self.prefix_cache.insert(req.prompt_tokens, kv, kv)
         req.state = RequestState.DONE
         req.finish_s = self.clock()
         resp = Response(
@@ -583,7 +751,8 @@ class SimEngine(BaseEngine):
             queue_ms=(req.start_s - req.submit_s) * 1e3,
             energy_wh=pre_wh + dec_wh,
             input_tokens=n_in,
-            output_tokens=out_tokens, ttft_ms=latency_ms, prefill_wh=pre_wh)
+            output_tokens=out_tokens, ttft_ms=latency_ms,
+            prefix_reused=req.prefix_reused, prefill_wh=pre_wh)
         resp.accuracy = acc  # type: ignore[attr-defined]
         return resp
 
@@ -630,6 +799,7 @@ class SimEngine(BaseEngine):
         for r in inflight:
             r.state = RequestState.QUEUED
             r.start_s = 0.0
+            r.prefix_reused = 0          # re-probes on re-admission
         self.queue = []
         self._progress.clear()
         self._outcomes.clear()

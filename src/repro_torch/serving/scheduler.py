@@ -2,6 +2,10 @@
 
 Implements the paper's online deployment (§4.4):
 
+  * caching: GreenCache (``repro_torch.cache``) is consulted before
+    routing — a semantic hit answers the query with zero engine work, and
+    prefix-KV hit lengths become expected-energy discounts in the routing
+    decision (only the queries that need compute are routed);
   * routing: every query goes through GreenServRouter (context → feasible →
     LinUCB), execution through the selected model's engine, and the
     measured (accuracy, energy, latency) closes the bandit loop, flushed
@@ -17,17 +21,22 @@ Implements the paper's online deployment (§4.4):
   * model addition (§6.3.4): ``add_engine`` registers a new pool member at
     runtime — the router grows a fresh arm, zero offline calibration.
 
-This is the constructor-default path of the JAX package's ``PoolServer``.
-GreenCache, telemetry, the energy cost model and admission planner,
-disaggregated decode engines, deadlines, retries and circuit breakers
-wait for later slices of the port: asking for one raises
-``NotImplementedError``.
+This is the JAX package's ``PoolServer`` with GreenCache.  Telemetry,
+the energy cost model and admission planner, disaggregated decode
+engines, deadlines, retries and circuit breakers wait for later slices of
+the port: asking for one raises ``NotImplementedError`` (the telemetry
+hooks on the cache path are skipped, as the JAX package skips them when
+telemetry is None).
 """
 from __future__ import annotations
 
 import time
 from typing import Callable, Dict, List, Optional, Sequence
 
+import numpy as np
+
+from repro_torch.cache import GreenCache
+from repro_torch.cache.semantic import SemanticEntry
 from repro_torch.core.router import GreenServRouter
 from repro_torch.core.types import Feedback, ModelProfile, Query
 from repro_torch.serving.engine import BaseEngine, EngineFailure
@@ -42,7 +51,7 @@ class LivelockError(TimeoutError):
 
 
 _LATER_SLICES = {
-    "telemetry": "telemetry", "cache": "cache", "decode_engines":
+    "telemetry": "telemetry", "decode_engines":
     "disaggregation", "cost_model": "cost-model", "admission_planner":
     "cost-model", "deadline_s": "reliability", "max_retries": "reliability",
     "breaker_config": "reliability"}
@@ -51,9 +60,12 @@ _LATER_SLICES = {
 class PoolServer:
     """The GreenServ scheduler: routes queries, steps engines, closes the
     bandit loop.  ``hedge_after_steps`` is measured in scheduler steps
-    spent QUEUED; ``heartbeat_timeout_s`` in wall-clock seconds.
-    ``prefill_chunk`` (prompt tokens per engine prefill tick) is applied
-    to every engine at construction and on ``add_engine``."""
+    spent QUEUED; ``heartbeat_timeout_s`` in wall-clock seconds.  Every
+    pool-level serving setting — ``prefill_chunk`` (prompt tokens per
+    engine prefill tick) and the ``cache`` handles (GreenCache prefix-KV /
+    semantic reuse, consulted before routing; ``mode="off"`` is no
+    cache) — is applied through one ``_configure_engine`` choke point at
+    construction and again on ``add_engine``."""
 
     def __init__(self, router: GreenServRouter,
                  engines: Dict[str, BaseEngine],
@@ -63,7 +75,7 @@ class PoolServer:
                  accuracy_fn: Optional[Callable] = None,
                  telemetry=None,
                  prefill_chunk: Optional[int] = None,
-                 cache=None,
+                 cache: Optional[GreenCache] = None,
                  decode_engines=None,
                  cost_model=None,
                  admission_planner: bool = False,
@@ -71,8 +83,6 @@ class PoolServer:
                  max_retries: int = 0,
                  breaker_config=None):
         asked = {"telemetry": telemetry is not None,
-                 "cache": cache is not None and getattr(cache, "mode",
-                                                        "on") != "off",
                  "decode_engines": bool(decode_engines),
                  "cost_model": cost_model is not None,
                  "admission_planner": bool(admission_planner),
@@ -96,9 +106,13 @@ class PoolServer:
         self.heartbeat_timeout_s = heartbeat_timeout_s
         self.accuracy_fn = accuracy_fn
         self.prefill_chunk = prefill_chunk
+        self.cache = cache if (cache is None or cache.mode != "off") else None
+        if self.cache is not None:
+            # guard features must live in the router's embedding space
+            self.cache.bind_context(router.context)
         self._step_idx = 0
-        for eng in engines.values():
-            self._configure_engine(eng)
+        for name, eng in engines.items():
+            self._configure_engine(name, eng)
         self.inflight: Dict[int, Request] = {}
         self.hedges: Dict[int, Request] = {}
         self.responses: Dict[int, Response] = {}
@@ -106,7 +120,8 @@ class PoolServer:
         # continuous-batching arrivals queue: ``enqueue``d queries wait
         # here until a step() tick has free prefill capacity for them
         self.arrivals: List[Query] = []
-        self.stats = {"hedges": 0, "restarts": 0, "completed": 0}
+        self.stats = {"hedges": 0, "restarts": 0, "completed": 0,
+                      "cache_hits": 0}
         # cumulative routing decisions landed per engine (primaries,
         # hedges, restart replays)
         self.dispatch_counts: Dict[str, int] = {}
@@ -116,15 +131,21 @@ class PoolServer:
 
     # -- pool growth (paper §6.3.4) ---------------------------------------------
 
-    def _configure_engine(self, engine: BaseEngine) -> None:
+    def _configure_engine(self, name: str, engine: BaseEngine) -> None:
         """Apply every pool-level serving setting to one engine — the
-        single choke point used at construction and by ``add_engine``."""
+        single choke point used at construction and by ``add_engine``, so
+        a late joiner never misses a knob (prefill chunking, its
+        prefix-KV cache handle).  The prefix cache is keyed by the model
+        name (KV is parameter-specific)."""
         if self.prefill_chunk is not None:
             engine.set_prefill_chunk(self.prefill_chunk)
+        if self.cache is not None:
+            engine.set_prefix_cache(
+                self.cache.prefix_for(name.split("#", 1)[0]))
 
     def add_engine(self, profile: ModelProfile, engine: BaseEngine) -> None:
         """Zero-calibration model addition: new engine + fresh bandit arm."""
-        self._configure_engine(engine)
+        self._configure_engine(profile.name, engine)
         self.engines[profile.name] = engine
         self.router.pool.add(profile)   # fires the router's add-arm hook
 
@@ -161,33 +182,129 @@ class PoolServer:
             self.submit_batch(batch)
 
     def submit_batch(self, queries: Sequence[Query]) -> List[Request]:
-        """Admit a batch: one ``route_batch`` call routes every query and
-        each engine receives its slice in arrival order.  This is the
-        serving hot path — featurization and LinUCB scoring amortize over
-        the batch instead of paying per-query dispatch."""
+        """Admit a batch: cache consultation, then one ``route_batch`` call
+        routes every remaining query and each engine receives its slice in
+        arrival order.  This is the serving hot path — featurization and
+        LinUCB scoring amortize over the batch instead of paying per-query
+        dispatch.
+
+        GreenCache runs *before* routing: a semantic hit short-circuits
+        the query entirely (its Request comes back already DONE, the
+        cached Response is immediately available in ``responses``), and
+        per-(query, engine) prefix-KV hit lengths become expected-energy
+        discounts in the router's arm scores."""
         # routed models always come from the pool, so checking the
         # pool/engine invariant up front fails before ANY bookkeeping
         missing = [n for n in self.router.pool.names
                    if n not in self.engines]
         if missing:
             raise KeyError(f"no engine for pool member(s): {missing}")
-        tokens = [self.tokenizer(q.text) for q in queries]
-        decisions = self.router.route_batch(queries)
+        req_by_uid: Dict[int, Request] = {}
+        routable: List[Query] = []
+        miss_features: List[Optional[tuple]] = []
+        # one batched probe featurizes the whole admission (on the device
+        # path one featurize launch); the per-query loop below only does
+        # the similarity lookups
+        probe = None
+        if (self.cache is not None and self.cache.semantic_enabled
+                and queries):
+            probe = self.cache.features_batch([q.text for q in queries])
+        for i, query in enumerate(queries):
+            feats_in = (None if probe is None else
+                        (int(probe[0][i]), int(probe[1][i]), probe[2][i]))
+            hit, feats = self._try_semantic(query, feats_in)
+            if hit is not None:
+                req_by_uid[query.uid] = hit
+            else:
+                routable.append(query)
+                miss_features.append(feats)
+        tokens = [self.tokenizer(q.text) for q in routable]
+        discounts = self._prefix_discounts(routable, tokens)
+        # forward the probe's feature work (the embeddings included) into
+        # routing instead of re-deriving it there
+        embs = labels = None
+        if routable and miss_features[0] is not None:
+            labels = np.asarray([f[0] for f in miss_features], np.int64)
+            embs = np.stack([f[2] for f in miss_features])
+        decisions = self.router.route_batch(
+            routable, energy_discounts_wh=discounts, embeddings=embs,
+            task_labels=labels)
         per_engine: Dict[str, List[Request]] = {}
-        out: List[Request] = []
-        for i, (query, decision) in enumerate(zip(queries, decisions)):
+        for i, (query, decision) in enumerate(zip(routable, decisions)):
             req = Request(query=query, prompt_tokens=tokens[i],
                           max_new_tokens=query.max_new_tokens,
+                          cache_features=miss_features[i],
                           submit_s=time.monotonic())
             per_engine.setdefault(decision.model_name, []).append(req)
             self.inflight[query.uid] = req
             self.wait_steps[query.uid] = 0
-            out.append(req)
+            req_by_uid[query.uid] = req
         for name, batch in per_engine.items():
             self.engines[name].submit_many(batch)
             self.dispatch_counts[name] = (
                 self.dispatch_counts.get(name, 0) + len(batch))
-        return out
+        return [req_by_uid[q.uid] for q in queries]
+
+    # -- GreenCache consultation ---------------------------------------------------
+
+    def _try_semantic(self, query: Query,
+                      feats: Optional[tuple] = None) -> tuple:
+        """(already-DONE Request | None, probe features | None).
+
+        A hit synthesizes the cached completion as this query's Response
+        (zero engine work, zero routing) and returns an already-DONE
+        Request.  Cached queries never touch router state (no k-means
+        update, no bandit pull): they are invisible to the learning loop,
+        exactly like traffic that never arrived.  On a miss the computed
+        (task, cluster, embedding) features come back so the query is
+        embedded exactly once per lifecycle — routing and the
+        completion-time insert both reuse them.  ``feats`` carries the
+        batched admission probe's row for this query."""
+        if self.cache is None or not self.cache.semantic_enabled:
+            return None, None
+        if feats is None:
+            feats = self.cache.features(query.text)
+        task, cluster, emb = feats
+        entry = self.cache.semantic.lookup(emb, task, cluster)
+        if entry is None:
+            return None, feats
+        resp = Response(
+            uid=query.uid, model_name=entry.model_name,
+            tokens=list(entry.tokens), text=entry.text_out,
+            latency_ms=0.0, queue_ms=0.0, energy_wh=0.0,
+            input_tokens=entry.input_tokens,
+            output_tokens=entry.output_tokens, ttft_ms=0.0)
+        resp.accuracy = entry.accuracy  # type: ignore[attr-defined]
+        self.responses[query.uid] = resp
+        self.stats["cache_hits"] += 1
+        req = Request(query=query, prompt_tokens=[],
+                      max_new_tokens=query.max_new_tokens,
+                      state=RequestState.DONE,
+                      model_name=entry.model_name)
+        return req, feats
+
+    def _prefix_discounts(self, queries: Sequence[Query],
+                          tokens: Sequence[List[int]]
+                          ) -> Optional[np.ndarray]:
+        """(Q, n_models) expected Wh each engine's prefix cache would save
+        per query — the router adds λ·ΔWh/scale to those arms' scores.
+        Probes use ``peek_len`` (no LRU touch): an unrouted probe must not
+        keep blocks warm.  The discount is the engine's analytic prefill
+        estimate (the JAX package's branch without a cost model)."""
+        if self.cache is None or not self.cache.prefix_enabled or not queries:
+            return None
+        names = self.router.pool.names
+        disc = np.zeros((len(queries), len(names)), np.float64)
+        for j, name in enumerate(names):
+            eng = self.engines[name]
+            pc = getattr(eng, "prefix_cache", None)
+            if pc is None:
+                continue
+            for i, toks in enumerate(tokens):
+                p = pc.peek_len(toks, max_tokens=len(toks) - 1)
+                if p > 0:
+                    disc[i, j] = eng.estimate_prefill_wh(p)
+        return disc if disc.any() else None
 
     # -- hedged (straggler-mitigating) dispatch ------------------------------------
 
@@ -304,6 +421,17 @@ class PoolServer:
         self.hedges.pop(primary_uid, None)
         self.wait_steps.pop(primary_uid, None)
         self.stats["completed"] += 1
+        if self.cache is not None and self.cache.semantic_enabled:
+            # the admission-time probe features (one embed per query);
+            # a fresh probe only if they were never stashed
+            task, cluster, emb = (primary.cache_features
+                                  or self.cache.features(primary.query.text))
+            self.cache.semantic.insert(emb, SemanticEntry(
+                text=primary.query.text, task_label=task, cluster=cluster,
+                model_name=resp.model_name, tokens=list(resp.tokens),
+                text_out=resp.text, energy_wh=resp.energy_wh,
+                accuracy=float(accuracy), input_tokens=resp.input_tokens,
+                output_tokens=resp.output_tokens))
 
     # -- main loop ---------------------------------------------------------------------
 

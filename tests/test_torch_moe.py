@@ -185,6 +185,47 @@ def test_chunk_padding_never_evicts_real_tokens(moe_pair):
     torch.testing.assert_close(a[2, :1], b[2, :1], rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("g,t,k,e", [(3, 37, 4, 60), (1, 4, 4, 60),
+                                     (2, 8, 2, 3), (1, 512, 4, 8)])
+def test_combine_is_a_sequential_scatter_add(dtype, g, t, k, e):
+    """The combine (``moe._combine``) gives what a sequential scatter-add
+    gives — ``index_add_`` on the CPU, fp32 sums rounded once — bit for
+    bit, many tokens sharing experts included.  It replaced
+    ``index_add_``, whose CUDA atomics add in the order they land, so
+    that the same input gives the same output on the card (found by
+    ``chip_smoke.py``'s warm == cold check on qwen2-moe-a2.7b)."""
+    gen = torch.Generator().manual_seed(g * t + k)
+    expert = torch.randint(0, e, (g, t * k), generator=gen)
+    order = torch.argsort(expert, dim=-1, stable=True)
+    contrib = (torch.randn(g, t * k, 64, generator=gen) * 10).to(dtype)
+    sorted_token = torch.arange(t).repeat_interleave(k)[order]
+    rows = sorted_token + torch.arange(g)[:, None] * t
+    want = torch.zeros((g * t, 64), dtype=dtype).index_add_(
+        0, rows.reshape(-1), contrib.reshape(-1, 64)).reshape(g, t, 64)
+    got = moe._combine(contrib, order, t, k)
+    assert got.dtype == dtype
+    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    assert torch.equal(got.view(bits), want.view(bits))
+
+
+def test_moe_block_scatters_without_atomics(moe_pair, monkeypatch):
+    """No ``index_add_`` (or ``index_put_`` with accumulation) on the
+    MoE path: both add with atomics on CUDA."""
+    _, pcfg, _, model = moe_pair
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("an atomic scatter-add on the MoE path")
+
+    monkeypatch.setattr(torch.Tensor, "index_add_", refuse)
+    monkeypatch.setattr(torch.Tensor, "index_put_", refuse)
+    x = torch.from_numpy(_moe_case("chunk_padding", pcfg.d_model, seed=3))
+    for use_pallas in (True, False):
+        out, _ = moe.moe_block(model.layers[0].moe, x, pcfg,
+                               use_pallas=use_pallas)
+        assert torch.isfinite(out).all()
+
+
 def _requests(cls, query_cls):
     prompts = [[1] + list(range(10, 14)), [1] + list(range(20, 40)),
                [1] + [5 + (i % 200) for i in range(70)]]   # overflows 64

@@ -27,6 +27,7 @@ from repro.serving.engine import SimEngine as JaxSimEngine
 from repro.serving.request import Request as JaxRequest
 from repro.serving.request import RequestState as JaxRequestState
 from repro_torch.benchmarks import baselines, common, routerbench
+from repro_torch.cache import PrefixCache
 from repro_torch.configs import pool
 from repro_torch.core.bandits import BanditPolicy
 from repro_torch.core.types import Query, RouterConfig, TaskType
@@ -149,10 +150,18 @@ def test_sim_engine_responses_equal_on_an_injected_clock():
 
 
 def test_sim_engine_refuses_the_prefix_cache():
+    """The cache slice gave ``SimEngine`` its prefix cache (it used to
+    refuse one): it attaches with no layout gate, and detaches with
+    None (``tests/test_torch_cache.py`` drives it against the JAX
+    package)."""
     eng = SimEngine(pool.make_profile("qwen2.5-7b", "qwen", 7.0),
                     OutcomeSimulator(0))
-    with pytest.raises(NotImplementedError, match="cache slice"):
-        eng.set_prefix_cache(object())
+    pc = PrefixCache(max_blocks=4, block_tokens=4)
+    eng.set_prefix_cache(pc)
+    assert eng.prefix_cache is pc
+    assert eng.estimate_prefill_wh(8) == 0.0      # nothing observed yet
+    eng.set_prefix_cache(None)
+    assert eng.prefix_cache is None
 
 
 @pytest.mark.parametrize("algorithm", ["eps_greedy", "eps_greedy_ctx"])
@@ -315,8 +324,7 @@ def test_random_closed_loop_router_identical_to_jax():
 def test_baselines_table_identical_to_jax():
     want = jax_baselines.run(per_task=6, seed=1)
     got = baselines.run(per_task=6, seed=1, device="cpu")
-    assert set(got) == set(want) - {"ctx-thompson"}
-    assert list(got) == [n for n in want if n != "ctx-thompson"]
+    assert list(got) == list(want)
     for name, r in got.items():
         np.testing.assert_array_equal(r.selection_trace,
                                       want[name].selection_trace)
@@ -327,8 +335,11 @@ def test_baselines_table_identical_to_jax():
 
 
 def test_baselines_refuse_thompson_rows():
-    with pytest.raises(NotImplementedError, match="CTS"):
-        baselines.run(per_task=1, rows=["ctx-thompson"], device="cpu")
+    """The table runs its ``ctx-thompson`` row now (CTS is ported); it
+    still refuses a row it does not have (``thompson`` is RouterBench's
+    name)."""
+    got = baselines.run(per_task=1, rows=["ctx-thompson"], device="cpu")
+    assert list(got) == ["ctx-thompson"]
     with pytest.raises(ValueError, match="unknown rows"):
         baselines.run(per_task=1, rows=["thompson"], device="cpu")
 

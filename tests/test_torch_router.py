@@ -304,8 +304,16 @@ def test_device_path_moves_no_state_in_steady_state(warmed_jax_state):
 
 
 def test_unported_policies_raise():
+    """Every policy and solve mode is ported: CTS and the Cholesky mode
+    build and stay on the host featurize path (they need sequential
+    per-query semantics, as in the JAX package); names no package knows
+    raise."""
     for kw in (dict(algorithm="cts"), dict(solve_mode="cholesky")):
-        with pytest.raises(NotImplementedError):
+        r = GreenServRouter(RouterConfig(featurize="device", **kw),
+                            ModelPool(), device="cpu")
+        assert not r._device_featurize_active()
+    for kw in (dict(algorithm="ucb1"), dict(solve_mode="qr")):
+        with pytest.raises(ValueError):
             GreenServRouter(RouterConfig(**kw), ModelPool(), device="cpu")
 
 

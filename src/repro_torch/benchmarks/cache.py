@@ -55,7 +55,7 @@ def make_workload(n_queries: int, seed: int = 0, repeat_frac: float = 0.35,
 
 
 def drive(server, queries: List[Query], arrivals: List[float],
-          dt_s: float = 0.05, max_steps: int = 100_000) -> dict:
+          dt_s: float = 0.05) -> dict:
     """Serve the stream on a virtual clock through ``server``; returns
     the scorecard: the engines' metered joules and avoided joules, mean
     TTFT in scheduler steps, semantic and prefix hits, prefix tokens
@@ -98,7 +98,7 @@ def drive(server, queries: List[Query], arrivals: List[float],
         for resp in done:                            # completed same-step
             ttft_steps.setdefault(resp.uid, step - submit_step[resp.uid])
             reused += resp.prefix_reused
-        if step > max_steps:
+        if step > 100_000:
             raise TimeoutError("cache stream failed to drain")
     joules, avoided, prefix_hits = (b - a for a, b in zip(start, ledgers()))
     return {

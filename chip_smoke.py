@@ -92,6 +92,28 @@ Phases, in order; any failure raises and the script exits non-zero:
      joules, and featurize launched once per admission batch in both
      modes (in full mode by the probe; the decision reuses its
      embeddings);
+  5c. the energy-governed serving path (``repro_torch.launch.serve``,
+     ``costmodel``, ``telemetry``): (a) the launcher's default
+     configuration (``serve``: 40 queries, prefix cache at 512 blocks,
+     the cost model on, telemetry without a governor, featurize "auto")
+     over the serving engines' granite-3-8b, rwkv6-1.6b and
+     qwen2-moe-a2.7b — every query answered, every forecast reconciled,
+     the cost model's prior at each cold response's actual lengths equal
+     to its metered Wh within 1e-9, the telemetry's Wh equal to the
+     responses' within 1e-6, one featurize and one LinUCB launch per
+     routed batch, 24 gating launches per MoE tick, and a host-featurize
+     twin router on the card fed the same queries, cost matrices,
+     discounts and feedback picking the same arms; the modeled pool
+     watts printed beside the card's power draw (nvidia-smi), nothing
+     gated on them; (b) the governor at the JAX package's acceptance
+     (``tests/test_telemetry.py``): 1,000 queries over 8 paper-pool
+     ``SimEngine``s, router on the card, the cap at 60% of the
+     ungoverned Wh held, accuracy >= 0.9x, λ above 0.4, the governor's
+     Wh equal to the served Wh; the admission planner at a tight budget
+     defers and answers every query; (c) the cache workload in full mode
+     with the wall-clock governor at the uncached run's spend: every
+     query answered, avoided prefix and semantic Wh credited to the
+     governor and the export, the final λ printed;
   6. one-shot prefill: ``api.prefill`` on the four served models at full
      width (granite B=2 S=2048, danube B=1 S=6144, qwen2-moe B=2 S=2048,
      rwkv6 B=2 S=2048) through the flash kernel at every attention layer
@@ -373,6 +395,24 @@ CACHE_THRESHOLD = 0.92         # and --semantic-threshold
 CACHE_PROBE_Q = (1, 2, 3, 16, 60)  # admission batches the probe is held at
 CACHE_PREAMBLE = 40            # a preamble's whole blocks, in tokens
 CACHE_WARM_NEW = 8             # tokens generated by the warm/cold check
+# the energy phase: the launcher's default run at full width, the
+# governor at the JAX package's acceptance settings
+# (tests/test_telemetry.py: 60% of the ungoverned Wh, gain 0.005,
+# lambda_max 0.75, the paper pool cut to 8 models, batches of 10), the
+# planner at its tight budget (tests/test_costmodel.py) and the cache
+# workload governed at the uncached run's spend (bench_cache's budget)
+ENERGY_QUERIES = 40            # the launcher's --queries default
+PRIOR_REL = 1e-9               # prior at the actual lengths == metered Wh
+TELEMETRY_REL = 1e-6           # telemetry's Wh == the responses' Wh
+GOV_PER_TASK = 200             # make_stream(per_task=200): 1,000 queries
+GOV_CAP = 0.6
+GOV_GAIN, GOV_LAMBDA_MAX = 0.005, 0.75
+GOV_ACCURACY = 0.9             # governed >= 0.9 x the ungoverned accuracy
+GOV_KEEP = ("qwen2.5-0.5b", "qwen2.5-1.5b", "qwen2.5-7b", "llama-3.1-8b",
+            "phi-4-mini-4b", "phi-4-14b", "gemma-3-12b", "qwen2.5-14b")
+GOV_BATCH, GOV_ARMS = 10, 16
+PLANNER_BUDGET_WH = 0.02       # about two queries of headroom
+POWER_SAMPLE_MS = 250          # nvidia-smi's power.draw sampling period
 # WKV shapes: rwkv6's prefill (B, S, H), its dtypes (r, k, v bf16; logw, u
 # and the zero initial state fp32, as forward_hidden passes them), then
 # the same in fp32 with a nonzero initial state, then a ragged S, S = 1
@@ -1611,18 +1651,14 @@ def decode_only(server) -> bool:
             and len(live) >= 2 and all(r.prefill_done for r in live))
 
 
-def serving_phase(dev) -> dict:
+def serving_engines(dev) -> dict:
+    """The four full-width serving engines (bf16, ``use_pallas=True``,
+    random weights from a seed), at the launcher's ``max_batch``,
+    ``max_len`` and prefill chunk."""
     from repro_torch.configs import for_mode, get_config
-    from repro_torch.core.pool import ModelPool
-    from repro_torch.core.router import GreenServRouter
-    from repro_torch.core.types import RouterConfig
-    from repro_torch.data import stream as stream_lib
     from repro_torch.data import tokenizer as tok
     from repro_torch.serving.engine import ModelEngine
-    from repro_torch.serving.request import Request
-    from repro_torch.serving.scheduler import PoolServer
 
-    t0 = time.perf_counter()
     engines = {}
     for i, arch in enumerate(SERVE_ARCHS):
         cfg = for_mode(get_config(arch, vocab_size=tok.VOCAB_SIZE,
@@ -1640,6 +1676,20 @@ def serving_phase(dev) -> dict:
             f"{n_params / 1e9:.3f} B params in bf16 "
             f"({cfg.active_param_count() / 1e9:.2f} B active by the energy "
             f"model), prefill chunk {eng.prefill_chunk}")
+    return engines
+
+
+def serving_phase(dev) -> dict:
+    from repro_torch.core.pool import ModelPool
+    from repro_torch.core.router import GreenServRouter
+    from repro_torch.core.types import RouterConfig
+    from repro_torch.data import stream as stream_lib
+    from repro_torch.data import tokenizer as tok
+    from repro_torch.serving.request import Request
+    from repro_torch.serving.scheduler import PoolServer
+
+    t0 = time.perf_counter()
+    engines = serving_engines(dev)
     torch.cuda.synchronize()
     t_init = time.perf_counter() - t0
     router = GreenServRouter(RouterConfig(lam=0.4, energy_scale_wh=0.05),
@@ -1872,6 +1922,18 @@ def serve_one(eng, prompt: list, uid: int) -> tuple:
     return done[0], first
 
 
+def counted_routes(router) -> list:
+    """Record the batch size of every ``route_batch`` call on ``router``."""
+    calls, route = [], router.route_batch
+
+    def counted(qs, *args, **kwargs):
+        calls.append(len(qs))
+        return route(qs, *args, **kwargs)
+
+    router.route_batch = counted
+    return calls
+
+
 def cache_phase(dev, engines) -> dict:
     """GreenCache at full width (bf16, ``use_pallas=True``): (a) the
     admission probe through the featurize kernel against the host
@@ -1971,14 +2033,7 @@ def cache_phase(dev, engines) -> dict:
     cards = {}
     for mode in ("off", "full"):
         r = router()
-        calls = []
-        route_batch = r.route_batch
-
-        def counted(qs, *args, **kwargs):
-            calls.append(len(qs))
-            return route_batch(qs, *args, **kwargs)
-
-        r.route_batch = counted
+        calls = counted_routes(r)
         cache = GreenCache(mode=mode, kv_cache_blocks=CACHE_BLOCKS,
                            semantic_threshold=CACHE_THRESHOLD)
         server = PoolServer(r, sub, tokenizer=tok.encode,
@@ -2032,6 +2087,366 @@ def cache_phase(dev, engines) -> dict:
         f"package's --smoke claims >= 30% on its smoke engines, not "
         f"asserted at full width), mean TTFT {full['ttft_steps_mean']:.3f}"
         f" vs {off['ttft_steps_mean']:.3f} steps")
+    gc.collect()
+    return launches, off["joules"]
+
+
+# ---------------------------------------------------------------------------
+# 5c. the energy-governed serving path: the launcher's default run at full
+#     width, the governor's cap, the planner, the cache workload governed
+# ---------------------------------------------------------------------------
+
+
+def set_launches(counts: dict) -> None:
+    """Every wrapper's launch count back to ``counts``."""
+    for name, mod in _ops_modules().items():
+        mod.launches = counts[name]
+
+
+@contextlib.contextmanager
+def host_twin(router_cls, twin):
+    """While active, every ``route_batch`` and ``feedback_batch`` of any
+    other ``router_cls`` is replayed on ``twin`` (a host-featurize router
+    on the same card) with the same arguments — the same queries, cost
+    matrix and prefix discounts, the same feedback.  The twin's launches
+    are comparisons: the counts are put back after each replay.  Yields
+    the list of (arms, twin's arms) per routed batch."""
+    route, feedback = router_cls.route_batch, router_cls.feedback_batch
+    batches = []
+
+    def routing(self, queries, *args, **kwargs):
+        decisions = route(self, queries, *args, **kwargs)
+        if self is not twin and queries:
+            saved = read_launches()
+            mirror = route(twin, queries, *args, **kwargs)
+            set_launches(saved)
+            batches.append(([d.model_index for d in decisions],
+                            [d.model_index for d in mirror]))
+        return decisions
+
+    def feeding(self, fbs, *args, **kwargs):
+        out = feedback(self, fbs, *args, **kwargs)
+        if self is not twin:
+            saved = read_launches()
+            feedback(twin, fbs, *args, **kwargs)
+            set_launches(saved)
+        return out
+
+    router_cls.route_batch, router_cls.feedback_batch = routing, feeding
+    try:
+        yield batches
+    finally:
+        router_cls.route_batch, router_cls.feedback_batch = route, feedback
+
+
+@contextlib.contextmanager
+def power_draw():
+    """The card's power draw in W, read by ``nvidia-smi --query-gpu=
+    power.draw`` every ``POWER_SAMPLE_MS`` from a thread while the block
+    runs (each read is a process that ends before the next starts).
+    Yields the list the samples go into."""
+    import threading
+
+    watts, stop = [], threading.Event()
+
+    def sample():
+        while not stop.is_set():
+            try:
+                out = subprocess.run(
+                    ["nvidia-smi", "--query-gpu=power.draw",
+                     "--format=csv,noheader,nounits"], capture_output=True,
+                    text=True, timeout=10).stdout.split()
+            except (OSError, subprocess.SubprocessError):
+                return                    # no reading: "not measured"
+            if out:
+                watts.append(float(out[0]))
+            stop.wait(POWER_SAMPLE_MS / 1e3)
+
+    thread = threading.Thread(target=sample, daemon=True)
+    thread.start()
+    try:
+        yield watts
+    finally:
+        stop.set()
+        thread.join(timeout=20)
+
+
+def energy_phase(dev, engines, cache_off_joules: float) -> dict:
+    """The energy-governed serving path on the card: (a) the launcher's
+    default configuration (``launch.serve.serve``) over the serving
+    phase's full-width granite-3-8b, rwkv6-1.6b and qwen2-moe-a2.7b —
+    every query answered, every forecast reconciled, the prior at the
+    actual lengths equal to the metered Wh of each cold response, the
+    telemetry's Wh equal to the responses', one featurize and one LinUCB
+    launch per routed batch, and a host-featurize twin router fed the
+    same queries, cost matrices, discounts and feedback picking the same
+    arms; the modeled watts beside the card's own power draw; (b) the
+    governor at the JAX package's acceptance (60% cap held, accuracy >=
+    0.9x, λ above 0.4, its Wh == the served Wh) on ``SimEngine``s of the
+    paper pool with the router on the card, and the admission planner at
+    a tight budget; (c) the cache workload (full mode) governed at the
+    uncached run's spend, its avoided Wh credited to the governor.
+    Returns the router kernels' and the gating kernel's launches."""
+    from repro_torch.benchmarks import cache as cache_bench
+    from repro_torch.benchmarks.common import drive_pool_stream
+    from repro_torch.cache import GreenCache
+    from repro_torch.configs.pool import PAPER_POOL
+    from repro_torch.core.pool import ModelPool
+    from repro_torch.core.router import GreenServRouter
+    from repro_torch.core.types import ModelProfile, Query, RouterConfig
+    from repro_torch.costmodel import EnergyCostModel
+    from repro_torch.data import tokenizer as tok
+    from repro_torch.data.stream import make_stream
+    from repro_torch.launch import serve as launcher
+    from repro_torch.serving.engine import SimEngine
+    from repro_torch.serving.scheduler import PoolServer
+    from repro_torch.telemetry import EnergyBudgetGovernor, Telemetry
+
+    launches = {"featurize": 0, "linucb": 0, "moe_gating": 0}
+
+    def tally(got):
+        for k in launches:
+            launches[k] += got.get(k, 0)
+
+    # (a) the launcher's default configuration at full width
+    args = launcher.build_parser().parse_args(
+        ["--queries", str(ENERGY_QUERIES), "--device", str(dev)])
+    served = {a: engines[a] for a in args.pool}
+    for name, e in served.items():
+        got = (e.max_batch, e.max_len, e.cfg.use_pallas, e.cfg.param_dtype,
+               e.prefill_chunk)
+        want = (4, SERVE_MAX_LEN, True, "bfloat16",
+                1 if name == RWKV_ARCH else args.prefill_chunk)
+        if got != want:
+            raise AssertionError(f"(a) {name}: {got}, not the launcher's "
+                                 f"{want}")
+    moe_eng = served[MOE_ARCH]
+    moe_ticks0 = sum(moe_eng.tick_counts.values())
+    twin = GreenServRouter(
+        RouterConfig(lam=args.lam, energy_scale_wh=0.05, featurize="host"),
+        ModelPool([e.profile for e in served.values()]), device=dev)
+    reset_launches()
+    t = time.perf_counter()
+    with host_twin(GreenServRouter, twin) as batches, power_draw() as watts:
+        run = launcher.serve(args, served,
+                             ModelPool([e.profile for e in served.values()]))
+        torch.cuda.synchronize()
+    t_a = time.perf_counter() - t
+    got = read_launches()
+    server, cm, tel = run["server"], run["cost_model"], run["telemetry"]
+    router, queries = run["router"], run["queries"]
+    if not router._device_featurize_active():
+        raise AssertionError("(a) the launcher's router is not on the "
+                             "device featurize path")
+    resp = list(server.responses.values())
+    if len(resp) != len(queries) or len(queries) != ENERGY_QUERIES:
+        raise AssertionError(f"(a) {len(resp)}/{len(queries)} answered")
+    routed = sum(len(a) for a, _ in batches)
+    if not (cm.n_predicted == cm.n_reconciled == routed == len(queries)
+            and cm.inflight_predicted == 0):
+        raise AssertionError(f"(a) {cm.n_reconciled}/{cm.n_predicted} "
+                             f"forecasts reconciled, {routed} queries "
+                             f"routed of {len(queries)}")
+    cold, worst = 0, 0.0
+    for r in resp:
+        if r.prefix_reused:
+            continue
+        a_pre, a_dec = cm.engines[r.model_name].analytic_split_wh(
+            r.input_tokens, r.output_tokens)
+        worst = max(worst, abs(a_pre + a_dec - r.energy_wh) / r.energy_wh)
+        cold += 1
+    if not cold or worst > PRIOR_REL:
+        raise AssertionError(f"(a) prior vs metered Wh: {worst:.3g} "
+                             f"relative over {cold} cold responses")
+    served_wh = sum(r.energy_wh for r in resp)
+    tel_wh = sum(m.value for m in tel.registry
+                 if m.name == "greenserv_energy_mwh_total") / 1e3
+    if abs(tel_wh - served_wh) > TELEMETRY_REL * served_wh:
+        raise AssertionError(f"(a) telemetry {tel_wh} Wh, responses "
+                             f"{served_wh} Wh")
+    want = {"featurize": len(batches), "linucb": len(batches),
+            "moe_gating": moe_eng.cfg.n_layers
+            * (sum(moe_eng.tick_counts.values()) - moe_ticks0)}
+    if {k: got[k] for k in want} != want:
+        raise AssertionError(f"(a) launches {got}, expected {want} over "
+                             f"{len(batches)} routed batches")
+    differ = [i for i, (a, b) in enumerate(batches) if a != b]
+    if differ:
+        raise AssertionError(f"(a) the device router and its host twin "
+                             f"picked different arms in batches "
+                             f"{differ[:8]}: {batches[differ[0]]}")
+    for name, e in served.items():
+        if e.nonfinite_ticks:
+            raise AssertionError(f"(a) {name}: {e.nonfinite_ticks} ticks "
+                                 f"with non-finite logits")
+        e.set_prefix_cache(None)
+    tally(got)
+    mae = cm.stats()["mae_ratio"]
+    log("energy", f"(a) launcher defaults at full width: "
+        f"{len(resp)}/{len(queries)} answered in {t_a:.2f} s "
+        f"({server._step_idx} steps, {t_a / server._step_idx * 1e3:.3f} ms "
+        f"each); {cm.n_reconciled}/{cm.n_predicted} forecasts reconciled, "
+        f"MAE {mae:.4f} of metered Wh; prior == metered on {cold} cold "
+        f"responses (worst {worst:.3g} relative); telemetry {tel_wh:.9f} Wh "
+        f"== responses {served_wh:.9f} Wh; {len(batches)} routed batches, "
+        f"device == host-twin arms in all; launches {want}; arms "
+        f"{dict(zip(router.pool.names, map(int, router.selection_counts())))}"
+        f"; prefix hits {sum(r.prefix_reused > 0 for r in resp)}")
+    card_w = (f"mean {np.mean(watts):.2f} W, max {np.max(watts):.2f} W over "
+              f"{len(watts)} samples" if watts else "not measured")
+    log("energy", f"(a) power: modeled by the H100 constants of "
+        f"core/energy.py, pool mean {tel.power.avg_watts():.2f} W and peak "
+        f"{tel.power.peak_watts():.2f} W over the run's wall clock; the "
+        f"card's own power.draw (nvidia-smi, every {POWER_SAMPLE_MS} ms) "
+        f"{card_w} — different quantities, nothing gated on them")
+    del run, server, twin, router
+
+    # (b) the governor at the reference's acceptance; the planner
+    exclude = [row[0] for row in PAPER_POOL if row[0] not in GOV_KEEP]
+    kw = dict(seed=0, batch=GOV_BATCH, exclude=exclude, max_arms=GOV_ARMS,
+              fit_classifier=True, device=dev)
+    queries = make_stream(per_task=GOV_PER_TASK, seed=0)
+    reset_launches()
+    t = time.perf_counter()
+    free = drive_pool_stream(queries, Telemetry(), **kw)
+    budget = GOV_CAP * free.total_energy_wh
+    governor = EnergyBudgetGovernor(budget, horizon_queries=len(queries),
+                                    gain=GOV_GAIN, lambda_max=GOV_LAMBDA_MAX)
+    run = drive_pool_stream(queries, Telemetry(governor=governor), **kw)
+    t_b = time.perf_counter() - t
+    if not run.server.router._device_featurize_active():
+        raise AssertionError("(b) the router is not on the device path")
+    calls = 2 * -(-len(queries) // GOV_BATCH)
+    tally(take_launches("(b) the governed drive", calls, calls))
+    tel = run.server.telemetry
+    peak = max((lam for _, lam in governor.lambda_history), default=0.0)
+    lat = tel.registry.find("greenserv_latency_ms")
+    checks = [
+        ("every query answered", len(free.server.responses)
+         == len(run.server.responses) == len(queries)),
+        ("the cap held", run.total_energy_wh <= budget),
+        (f"accuracy >= {GOV_ACCURACY}x the ungoverned",
+         run.mean_accuracy >= GOV_ACCURACY * free.mean_accuracy),
+        ("λ peaked above 0.4", peak > 0.4),
+        ("governor Wh == served Wh", abs(governor.cumulative_wh
+                                         - run.total_energy_wh)
+         <= 1e-6 * run.total_energy_wh),
+        ("telemetry saw every admission and completion",
+         tel.registry.find("greenserv_admitted_total").value == len(queries)
+         and lat is not None and lat.count == len(queries)),
+        ("power trace nonzero", tel.power.total_wh() > 0)]
+    failed = [name for name, ok in checks if not ok]
+    if failed:
+        raise AssertionError(f"(b) governor: {failed}")
+    log("energy", f"(b) governor at T = {len(queries)} ({len(GOV_KEEP)} "
+        f"paper-pool models, router on the card): ungoverned "
+        f"{free.total_energy_wh:.6f} Wh / accuracy "
+        f"{free.mean_accuracy:.4f}; cap {budget:.6f} Wh ({GOV_CAP:.0%}); "
+        f"governed {run.total_energy_wh:.6f} Wh "
+        f"({run.total_energy_wh / budget:.4f} of the cap) / accuracy "
+        f"{run.mean_accuracy:.4f} "
+        f"({run.mean_accuracy / free.mean_accuracy:.4f}x); λ peak "
+        f"{peak:.4f}, final {governor.current_lambda:.4f}, "
+        f"{len(governor.lambda_history)} changes; {t_b:.2f} s for both "
+        f"runs, {calls} routing calls")
+    profiles = [ModelProfile(name=f"sim{i}", family="s", params_b=i + 1.0)
+                for i in range(2)]
+    prouter = GreenServRouter(RouterConfig(lam=0.4, max_arms=8),
+                              ModelPool(profiles), device=dev)
+    sims = {p.name: SimEngine(p, lambda q, m: (0.9, 0.01, 5.0, 4))
+            for p in profiles}
+    pgov = EnergyBudgetGovernor(PLANNER_BUDGET_WH, horizon_queries=12)
+    pcm = EnergyCostModel()
+    for p in profiles:
+        m = pcm.register_engine(p.name)
+        for _ in range(30):
+            m.observe(n_prompt=8, n_out=4, max_new_tokens=4, reused=0,
+                      migrated=False, occupancy=0.0, measured_wh=0.01)
+    planner = PoolServer(prouter, sims, telemetry=Telemetry(governor=pgov),
+                         cost_model=pcm, admission_planner=True)
+    calls = counted_routes(prouter)
+    planner.enqueue_many([Query(uid=i, text=f"plan query {i}",
+                                max_new_tokens=4) for i in range(12)])
+    reset_launches()
+    planner.run_until_drained()
+    tally(take_launches("(b) the planner", len(calls), len(calls)))
+    if not (len(planner.responses) == 12 and planner.stats["deferred"] > 0
+            and pcm.n_reconciled == 12):
+        raise AssertionError(f"(b) planner: {len(planner.responses)}/12 "
+                             f"answered, {planner.stats['deferred']} "
+                             f"deferred, {pcm.n_reconciled} reconciled")
+    log("energy", f"(b) planner at {PLANNER_BUDGET_WH} Wh: 12/12 answered in "
+        f"{planner._step_idx} steps, {planner.stats['deferred']} "
+        f"deferrals, {len(calls)} routing calls")
+    del free, run, planner
+
+    # (c) the cache workload with the governor in the loop
+    sub = {a: engines[a] for a in CACHE_ARCHS}
+    queries, arrivals = cache_bench.make_workload(CACHE_QUERIES, seed=0)
+    clock = {"t": 0.0}
+    tel = cache_bench.governed_telemetry(cache_off_joules / 3600.0, arrivals,
+                                         clock)
+    crouter = GreenServRouter(RouterConfig(lam=0.4, energy_scale_wh=0.05),
+                              ModelPool([e.profile for e in sub.values()]),
+                              device=dev)
+    calls = counted_routes(crouter)
+    cache = GreenCache(mode="full", kv_cache_blocks=CACHE_BLOCKS,
+                       semantic_threshold=CACHE_THRESHOLD,
+                       clock=lambda: clock["t"])
+    server = PoolServer(crouter, sub, tokenizer=tok.encode,
+                        accuracy_fn=exact_match_accuracy,
+                        prefill_chunk=SERVE_CHUNK, cache=cache,
+                        telemetry=tel)
+    # the engines' avoided-joule meters carry the earlier phases' hits;
+    # the hub's first step books them whole (the JAX package's hub does
+    # the same), so this run's own credit is the credit less this carry
+    carried_j = sum(e.cumulative_joules_avoided() for e in sub.values())
+    reset_launches()
+    t = time.perf_counter()
+    card = cache_bench.drive(server, queries, arrivals, clock=clock)
+    torch.cuda.synchronize()
+    t_c = time.perf_counter() - t
+    got = read_launches()
+    routed = sum(n > 0 for n in calls)
+    want = {"featurize": card["admission_batches"], "linucb": routed}
+    if {k: got[k] for k in want} != want:
+        raise AssertionError(f"(c) launches {got}, expected {want}")
+    tally(got)
+    g = card["governor"]
+    avoided = {k: tel.registry.find("greenserv_energy_joules_avoided_total",
+                                    {"kind": k}).value
+               for k in ("prefix", "semantic")}
+    credited_j = g["avoided_prefix_wh"] * 3600.0
+    own_j = card["avoided_joules"]
+    if not (card["completed"] == len(queries)
+            and own_j > 0 and g["avoided_semantic_wh"] > 0
+            and abs(credited_j - (carried_j + own_j))
+            <= TELEMETRY_REL * (carried_j + own_j)
+            and abs(avoided["prefix"] - credited_j)
+            <= TELEMETRY_REL * credited_j
+            and abs(avoided["semantic"] - g["avoided_semantic_wh"] * 3600.0)
+            <= TELEMETRY_REL * avoided["semantic"]
+            and abs(g["cumulative_wh"] - card["response_wh"])
+            <= TELEMETRY_REL * card["response_wh"]):
+        raise AssertionError(f"(c) {card['completed']}/{len(queries)} "
+                             f"answered; governor {g}; avoided {avoided} J "
+                             f"in the export, {own_j} J this run, "
+                             f"{carried_j} J carried")
+    for e in sub.values():
+        e.set_prefix_cache(None)
+    log("energy", f"(c) cache workload, full mode, governed at the uncached "
+        f"run's {cache_off_joules / 3600.0:.6f} Wh: "
+        f"{card['completed']}/{len(queries)} answered in {card['steps']} "
+        f"steps ({t_c:.2f} s); spent {g['cumulative_wh']:.6f} Wh; avoided "
+        f"credited to the governor: prefix {own_j:.4f} J this run "
+        f"({card['prefix_hits']} hits) + {carried_j:.4f} J carried by the "
+        f"engines' meters = {g['avoided_prefix_wh']:.6f} Wh, semantic "
+        f"{g['avoided_semantic_wh']:.6f} Wh ({card['semantic_hits']} hits); "
+        f"the export {avoided['prefix']:.4f} / {avoided['semantic']:.4f} J; "
+        f"final λ "
+        f"{g['lambda']:.4f} after {g['lambda_changes']} changes, pressure "
+        f"{g['pressure']:.4f}; launches {want}")
+    del server, cache, crouter
     gc.collect()
     return launches
 
@@ -2892,8 +3307,11 @@ def main() -> int:
     launches, engines = serving_phase(dev)
     log("serve", f"phase {time.perf_counter() - t:.2f} s")
     t = time.perf_counter()
-    cached = cache_phase(dev, engines)
+    cached, cache_off_joules = cache_phase(dev, engines)
     log("cache", f"phase {time.perf_counter() - t:.2f} s")
+    t = time.perf_counter()
+    energy = energy_phase(dev, engines, cache_off_joules)
+    log("energy", f"phase {time.perf_counter() - t:.2f} s")
     t = time.perf_counter()
     prefill = prefill_phase(dev, engines)
     del engines
@@ -2939,14 +3357,14 @@ def main() -> int:
 
     kernels = [
         row("featurize", "featurize.cu", "featurize/kernel.py:37",
-            launches["featurize"] + paper["featurize"] + cached["featurize"],
-            feat["worst"], f1),
+            launches["featurize"] + paper["featurize"] + cached["featurize"]
+            + energy["featurize"], feat["worst"], f1),
         row("linucb", "linucb.cu", "linucb/kernel.py:25",
-            launches["linucb"] + paper["linucb"] + cached["linucb"],
-            lin["worst"], l1),
+            launches["linucb"] + paper["linucb"] + cached["linucb"]
+            + energy["linucb"], lin["worst"], l1),
         row("moe_gating", "moe_gating.cu", "moe_gating/kernel.py:23",
-            launches["moe_gating"] + cached["moe_gating"], gate["worst"],
-            g4),
+            launches["moe_gating"] + cached["moe_gating"]
+            + energy["moe_gating"], gate["worst"], g4),
         row("flash_attention", "flash_attention.cu",
             "flash_attention/kernel.py:33",
             prefill["flash_attention"] + hybrid["flash_attention"]

@@ -13,9 +13,8 @@ Every router here is built on ``device`` (None: the card);
 ``make_router`` also takes the featurize placement ("auto": the device
 path when the device is CUDA).  The
 JAX package's closed-loop scenario drive (``run_scenario``, ``run_record``,
-``ClosedLoopResult``) runs the cache, the cost model, telemetry and the
-governor, and waits for the port's cost-model and telemetry slices (the
-cache's own workload and drive are ``benchmarks/cache.py``).
+``ClosedLoopResult``) waits for the port's scenario lab (the cache's own
+workload and drive are ``benchmarks/cache.py``).
 """
 from __future__ import annotations
 
@@ -137,7 +136,7 @@ class ServeResult:
     step_s_total: float
     n_steps: int
     server: object                      # the drained PoolServer
-    telemetry: object                   # always None until telemetry is ported
+    telemetry: object                   # the Telemetry passed in, or None
 
     @property
     def step_ms(self) -> float:
@@ -157,8 +156,9 @@ def drive_pool_stream(queries: Sequence[Query], telemetry=None,
     Admission is paced — the next batch waits until in-flight work drains
     below ``max_inflight`` (default 2·batch), since open-loop blasting
     into a backed-up pool would let hundreds of stale routing decisions
-    queue before their first feedback.  ``telemetry`` is refused by the
-    port's ``PoolServer`` until its telemetry slice.
+    queue before their first feedback — and, with a governed
+    ``telemetry``, between a λ adjustment and its first observable
+    effect.
     """
     max_inflight = max_inflight if max_inflight is not None else 2 * batch
     pool = build_paper_pool(exclude=exclude)

@@ -18,10 +18,11 @@ cache, creates per-engine prefix caches on demand, and (once bound to the
 router's ``ContextGenerator``) computes the guard features with the same
 embedder/classifier/centroids the router uses — read-only, so cache
 probes never perturb routing state (no k-means updates, no classifier
-fits).  A prefix hit is credited as avoided energy on its engine's
-ledger (``cumulative_joules_avoided``); the JAX package also credits
-every hit to telemetry and the governor (``docs/CACHING.md``), which
-wait for the port's telemetry slice.
+fits).  Every hit is credited as avoided energy to telemetry
+(``greenserv_energy_joules_avoided_total{kind=prefix|semantic}``) and the
+governor's credit ledger: a prefix hit through its engine's meter
+(``cumulative_joules_avoided``, diffed each step), a semantic hit by the
+scheduler (``Telemetry.on_cache_hit``); see ``docs/CACHING.md``.
 """
 from __future__ import annotations
 

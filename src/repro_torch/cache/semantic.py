@@ -14,8 +14,8 @@ product against the entry matrix).  A hit requires *all three* guards:
 Entries store the completed ``Response`` payload (tokens/text, the model
 that produced it, its measured energy and accuracy) so the scheduler can
 synthesize an answer without routing — the avoided energy is the cached
-completion's own measured Wh (the JAX package credits it to telemetry
-and the governor as ``kind="semantic"``; the port's telemetry slice will).
+completion's own measured Wh, credited to telemetry/governor as
+``kind="semantic"``.
 
 This module is the JAX package's ``repro/cache/semantic.py`` (numpy only),
 carried as its own copy.

@@ -10,6 +10,13 @@ Implements the paper's online deployment (§4.4):
     LinUCB), execution through the selected model's engine, and the
     measured (accuracy, energy, latency) closes the bandit loop, flushed
     once per scheduler step through ``feedback_batch``;
+  * energy: an optional ``EnergyCostModel`` forecasts each (query, arm)'s
+    Wh before dispatch (the router's energy tilt, the governor's in-flight
+    charge) and calibrates from the metered ledger at completion; an
+    optional ``Telemetry`` hub records every admission, completion, hedge,
+    restart, cache hit and step, and its ``EnergyBudgetGovernor`` drives
+    the router's λ; with both, the admission planner defers arrivals whose
+    forecast would breach the budget's headroom;
   * continuous operation: ``enqueue``d arrivals are admitted into free
     engine slots each tick and routed at admission; engines are stepped
     round-robin, admitting new work between decode steps;
@@ -21,12 +28,10 @@ Implements the paper's online deployment (§4.4):
   * model addition (§6.3.4): ``add_engine`` registers a new pool member at
     runtime — the router grows a fresh arm, zero offline calibration.
 
-This is the JAX package's ``PoolServer`` with GreenCache.  Telemetry,
-the energy cost model and admission planner, disaggregated decode
-engines, deadlines, retries and circuit breakers wait for later slices of
-the port: asking for one raises ``NotImplementedError`` (the telemetry
-hooks on the cache path are skipped, as the JAX package skips them when
-telemetry is None).
+This is the JAX package's ``PoolServer`` with GreenCache, the cost model,
+telemetry and the governor.  Disaggregated decode engines, deadlines,
+retries and circuit breakers wait for a later slice of the port: asking
+for one raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -39,8 +44,10 @@ from repro_torch.cache import GreenCache
 from repro_torch.cache.semantic import SemanticEntry
 from repro_torch.core.router import GreenServRouter
 from repro_torch.core.types import Feedback, ModelProfile, Query
+from repro_torch.costmodel import EnergyCostModel
 from repro_torch.serving.engine import BaseEngine, EngineFailure
 from repro_torch.serving.request import Request, RequestState, Response
+from repro_torch.telemetry.hub import Telemetry
 
 
 class LivelockError(TimeoutError):
@@ -51,21 +58,23 @@ class LivelockError(TimeoutError):
 
 
 _LATER_SLICES = {
-    "telemetry": "telemetry", "decode_engines":
-    "disaggregation", "cost_model": "cost-model", "admission_planner":
-    "cost-model", "deadline_s": "reliability", "max_retries": "reliability",
-    "breaker_config": "reliability"}
+    "decode_engines": "disaggregation", "deadline_s": "reliability",
+    "max_retries": "reliability", "breaker_config": "reliability"}
 
 
 class PoolServer:
     """The GreenServ scheduler: routes queries, steps engines, closes the
     bandit loop.  ``hedge_after_steps`` is measured in scheduler steps
-    spent QUEUED; ``heartbeat_timeout_s`` in wall-clock seconds.  Every
-    pool-level serving setting — ``prefill_chunk`` (prompt tokens per
-    engine prefill tick) and the ``cache`` handles (GreenCache prefix-KV /
-    semantic reuse, consulted before routing; ``mode="off"`` is no
-    cache) — is applied through one ``_configure_engine`` choke point at
-    construction and again on ``add_engine``."""
+    spent QUEUED; ``heartbeat_timeout_s`` in seconds of ``clock`` (the
+    wall clock unless the caller injects one, as virtual-clock drives
+    do).  Every pool-level serving setting — ``prefill_chunk`` (prompt
+    tokens per engine prefill tick), the ``cache`` handles (GreenCache
+    prefix-KV / semantic reuse, consulted before routing; ``mode="off"``
+    is no cache), the cost model's registration and telemetry's
+    pre-binding — is applied through one ``_configure_engine`` choke
+    point at construction and again on ``add_engine``.
+    ``retry_backoff_steps`` is taken in the JAX package's position and
+    kept; the retries that read it wait for the reliability slice."""
 
     def __init__(self, router: GreenServRouter,
                  engines: Dict[str, BaseEngine],
@@ -73,19 +82,18 @@ class PoolServer:
                  hedge_after_steps: Optional[int] = None,
                  heartbeat_timeout_s: float = 30.0,
                  accuracy_fn: Optional[Callable] = None,
-                 telemetry=None,
+                 telemetry: Optional[Telemetry] = None,
                  prefill_chunk: Optional[int] = None,
                  cache: Optional[GreenCache] = None,
                  decode_engines=None,
-                 cost_model=None,
+                 cost_model: Optional[EnergyCostModel] = None,
                  admission_planner: bool = False,
+                 clock: Optional[Callable[[], float]] = None,
                  deadline_s: Optional[float] = None,
                  max_retries: int = 0,
+                 retry_backoff_steps: int = 2,
                  breaker_config=None):
-        asked = {"telemetry": telemetry is not None,
-                 "decode_engines": bool(decode_engines),
-                 "cost_model": cost_model is not None,
-                 "admission_planner": bool(admission_planner),
+        asked = {"decode_engines": bool(decode_engines),
                  "deadline_s": deadline_s is not None,
                  "max_retries": int(max_retries) > 0,
                  "breaker_config": breaker_config is not None}
@@ -104,15 +112,28 @@ class PoolServer:
                                                      for c in text[:32]])
         self.hedge_after_steps = hedge_after_steps
         self.heartbeat_timeout_s = heartbeat_timeout_s
+        # injectable time source: virtual-clock drives pass the clock their
+        # telemetry (and SimEngines) share, so submit/heartbeat timestamps
+        # never mix wall and modeled time
+        self.clock = clock or time.monotonic
         self.accuracy_fn = accuracy_fn
+        self.telemetry = telemetry
         self.prefill_chunk = prefill_chunk
         self.cache = cache if (cache is None or cache.mode != "off") else None
         if self.cache is not None:
             # guard features must live in the router's embedding space
             self.cache.bind_context(router.context)
+        # pre-dispatch Wh forecasts: the router's energy tilt, the
+        # governor's in-flight charge and (when enabled) the admission
+        # planner
+        self.cost_model = cost_model
+        self.admission_planner = bool(admission_planner)
+        self.retry_backoff_steps = max(int(retry_backoff_steps), 1)
         self._step_idx = 0
         for name, eng in engines.items():
-            self._configure_engine(name, eng)
+            self._configure_engine(name, eng, initial=True)
+        if telemetry is not None and telemetry.governor is not None:
+            telemetry.governor.attach(router)
         self.inflight: Dict[int, Request] = {}
         self.hedges: Dict[int, Request] = {}
         self.responses: Dict[int, Response] = {}
@@ -121,7 +142,7 @@ class PoolServer:
         # here until a step() tick has free prefill capacity for them
         self.arrivals: List[Query] = []
         self.stats = {"hedges": 0, "restarts": 0, "completed": 0,
-                      "cache_hits": 0}
+                      "cache_hits": 0, "deferred": 0}
         # cumulative routing decisions landed per engine (primaries,
         # hedges, restart replays)
         self.dispatch_counts: Dict[str, int] = {}
@@ -131,20 +152,30 @@ class PoolServer:
 
     # -- pool growth (paper §6.3.4) ---------------------------------------------
 
-    def _configure_engine(self, name: str, engine: BaseEngine) -> None:
+    def _configure_engine(self, name: str, engine: BaseEngine,
+                          initial: bool = False) -> None:
         """Apply every pool-level serving setting to one engine — the
         single choke point used at construction and by ``add_engine``, so
         a late joiner never misses a knob (prefill chunking, its
-        prefix-KV cache handle).  The prefix cache is keyed by the model
-        name (KV is parameter-specific)."""
+        prefix-KV cache handle, its cost-model registration, telemetry
+        pre-binding).  The prefix cache and the cost model are keyed by
+        the model name (KV and shape terms are parameter-specific)."""
+        model_name = name.split("#", 1)[0]
         if self.prefill_chunk is not None:
             engine.set_prefill_chunk(self.prefill_chunk)
         if self.cache is not None:
-            engine.set_prefix_cache(
-                self.cache.prefix_for(name.split("#", 1)[0]))
+            engine.set_prefix_cache(self.cache.prefix_for(model_name))
+        if self.cost_model is not None:
+            # registered after set_prefill_chunk: the prior mirrors the
+            # chunk the engine actually runs
+            self.cost_model.register_engine(model_name, engine)
+        if self.telemetry is not None:
+            self.telemetry.on_engine_added(name, engine, initial=initial)
 
     def add_engine(self, profile: ModelProfile, engine: BaseEngine) -> None:
-        """Zero-calibration model addition: new engine + fresh bandit arm."""
+        """Zero-calibration model addition: new engine + fresh bandit arm.
+        Every server-level setting applies to the late joiner through
+        ``_configure_engine``."""
         self._configure_engine(profile.name, engine)
         self.engines[profile.name] = engine
         self.router.pool.add(profile)   # fires the router's add-arm hook
@@ -177,9 +208,71 @@ class PoolServer:
         free = sum(e.free_capacity for e in self.engines.values())
         if free <= 0:
             return
-        batch, self.arrivals = self.arrivals[:free], self.arrivals[free:]
+        batch, rest = self.arrivals[:free], self.arrivals[free:]
+        if self._planner_active():
+            batch, deferred = self._plan_admissions(batch)
+            rest = deferred + rest
+        self.arrivals = rest
         if batch:
             self.submit_batch(batch)
+
+    def _planner_active(self) -> bool:
+        """Energy-aware admission requires all three legs: the planner
+        knob, a cost model to forecast with, and a governor whose budget
+        headroom is the thing being planned against."""
+        return (self.admission_planner and self.cost_model is not None
+                and self.telemetry is not None
+                and self.telemetry.governor is not None)
+
+    def _engine_occupancy(self, name: str) -> float:
+        """Fraction of the engine's slot/queue capacity in use — the cost
+        model's batching-pressure feature."""
+        eng = self.engines.get(name)
+        if eng is None:
+            return 0.0
+        cap = max(int(getattr(eng, "max_batch", 0)
+                      or getattr(eng, "concurrency", 0) or 1), 1)
+        return min(eng.pending / cap, 1.0)
+
+    def _plan_admissions(self, batch: List[Query]) -> tuple:
+        """(admit, deferred): FIFO stop-at-first-breach over the
+        governor's remaining Wh headroom.  Each arrival is costed at its
+        *cheapest* arm (the planner must never defer a query the router
+        could still serve within budget); the first arrival whose
+        forecast would breach the headroom stops the scan — no
+        reordering behind the breach.  An idle pool always admits the
+        head-of-line arrival regardless of headroom: admission pressure
+        may slow the pool down, but it must never stop it
+        (``run_until_drained`` would raise LivelockError)."""
+        gov = self.telemetry.governor
+        headroom = gov.admission_headroom_wh()
+        names = self.router.pool.names
+        costs = self.cost_model.predict_matrix(
+            names, [len(self.tokenizer(q.text)) for q in batch],
+            [q.max_new_tokens for q in batch],
+            occupancy={n: self._engine_occupancy(n) for n in names})
+        per_query = costs.min(axis=1)
+        admit: List[Query] = []
+        planned = 0.0
+        breach_wh = 0.0
+        pool_idle = not self.inflight
+        for q, wh in zip(batch, per_query):
+            if planned + wh > headroom:
+                if not admit and pool_idle:
+                    admit.append(q)      # head-of-line liveness guarantee
+                    planned += float(wh)
+                else:
+                    breach_wh = float(wh)
+                break
+            admit.append(q)
+            planned += float(wh)
+        deferred = list(batch[len(admit):])
+        if deferred:
+            self.stats["deferred"] += len(deferred)
+            self.telemetry.on_admission_deferred(
+                len(deferred), predicted_wh=breach_wh,
+                headroom_wh=max(headroom - planned, 0.0))
+        return admit, deferred
 
     def submit_batch(self, queries: Sequence[Query]) -> List[Request]:
         """Admit a batch: cache consultation, then one ``route_batch`` call
@@ -192,7 +285,10 @@ class PoolServer:
         the query entirely (its Request comes back already DONE, the
         cached Response is immediately available in ``responses``), and
         per-(query, engine) prefix-KV hit lengths become expected-energy
-        discounts in the router's arm scores."""
+        discounts in the router's arm scores plus an in-flight savings
+        credit for the governor.  With a cost model, the (Q, M) predicted
+        Wh tilts each decision and the winning arm's forecast (net of its
+        prefix discount) is noted for reconciliation at completion."""
         # routed models always come from the pool, so checking the
         # pool/engine invariant up front fails before ANY bookkeeping
         missing = [n for n in self.router.pool.names
@@ -226,23 +322,61 @@ class PoolServer:
         if routable and miss_features[0] is not None:
             labels = np.asarray([f[0] for f in miss_features], np.int64)
             embs = np.stack([f[2] for f in miss_features])
+        # pre-dispatch joule forecasts: a (Q, M) predicted-Wh matrix tilts
+        # the routing decision per (query, arm); float64 on the host, as
+        # the router applies it
+        costs = occ = None
+        if self.cost_model is not None and routable:
+            names = self.router.pool.names
+            occ = {n: self._engine_occupancy(n) for n in names}
+            costs = self.cost_model.predict_matrix(
+                names, [len(t) for t in tokens],
+                [q.max_new_tokens for q in routable], occupancy=occ)
         decisions = self.router.route_batch(
-            routable, energy_discounts_wh=discounts, embeddings=embs,
-            task_labels=labels)
+            routable, energy_discounts_wh=discounts,
+            energy_costs_wh=costs, embeddings=embs, task_labels=labels)
         per_engine: Dict[str, List[Request]] = {}
+        expected_savings_wh = 0.0
+        predicted = [] if costs is not None else None
         for i, (query, decision) in enumerate(zip(routable, decisions)):
             req = Request(query=query, prompt_tokens=tokens[i],
                           max_new_tokens=query.max_new_tokens,
                           cache_features=miss_features[i],
-                          submit_s=time.monotonic())
+                          submit_s=self.clock())
             per_engine.setdefault(decision.model_name, []).append(req)
             self.inflight[query.uid] = req
             self.wait_steps[query.uid] = 0
             req_by_uid[query.uid] = req
+            if discounts is not None:
+                expected_savings_wh += float(
+                    discounts[i, decision.model_index])
+            if costs is not None:
+                # the query's forecast on the arm that won, net of its
+                # predicted prefix-reuse saving (cold − discount = warm)
+                wh = float(costs[i, decision.model_index])
+                if discounts is not None:
+                    wh = max(wh - float(discounts[i, decision.model_index]),
+                             0.0)
+                req.predicted_wh = wh
+                self.cost_model.note_admission(
+                    query.uid, decision.model_name, wh,
+                    n_prompt=len(tokens[i]),
+                    max_new_tokens=query.max_new_tokens,
+                    occupancy=occ.get(decision.model_name, 0.0))
+                predicted.append((query.uid, wh))
         for name, batch in per_engine.items():
             self.engines[name].submit_many(batch)
             self.dispatch_counts[name] = (
                 self.dispatch_counts.get(name, 0) + len(batch))
+        if self.telemetry is not None:
+            # with the cost model on, the per-uid predictions are already
+            # net of prefix reuse — also crediting expected_savings_wh
+            # would discount the governor's in-flight commitment twice
+            self.telemetry.on_admit(
+                len(routable), sum(e.pending for e in self.engines.values()),
+                expected_savings_wh=(0.0 if costs is not None
+                                     else expected_savings_wh),
+                predicted=predicted)
         return [req_by_uid[q.uid] for q in queries]
 
     # -- GreenCache consultation ---------------------------------------------------
@@ -253,7 +387,8 @@ class PoolServer:
 
         A hit synthesizes the cached completion as this query's Response
         (zero engine work, zero routing) and returns an already-DONE
-        Request.  Cached queries never touch router state (no k-means
+        Request; the avoided energy — the cached completion's measured Wh
+        — is credited via ``Telemetry.on_cache_hit("semantic", …)``.  Cached queries never touch router state (no k-means
         update, no bandit pull): they are invisible to the learning loop,
         exactly like traffic that never arrived.  On a miss the computed
         (task, cluster, embedding) features come back so the query is
@@ -277,6 +412,9 @@ class PoolServer:
         resp.accuracy = entry.accuracy  # type: ignore[attr-defined]
         self.responses[query.uid] = resp
         self.stats["cache_hits"] += 1
+        if self.telemetry is not None:
+            self.telemetry.on_cache_hit("semantic", entry.energy_wh,
+                                        model=entry.model_name)
         req = Request(query=query, prompt_tokens=[],
                       max_new_tokens=query.max_new_tokens,
                       state=RequestState.DONE,
@@ -289,8 +427,10 @@ class PoolServer:
         """(Q, n_models) expected Wh each engine's prefix cache would save
         per query — the router adds λ·ΔWh/scale to those arms' scores.
         Probes use ``peek_len`` (no LRU touch): an unrouted probe must not
-        keep blocks warm.  The discount is the engine's analytic prefill
-        estimate (the JAX package's branch without a cost model)."""
+        keep blocks warm.  With a cost model attached the discount is the
+        calibrated predicted-suffix-minus-full (``discount_wh``) instead
+        of the engine's raw analytic prefill estimate, so the tilt and
+        the governor's in-flight charge come from the same forecaster."""
         if self.cache is None or not self.cache.prefix_enabled or not queries:
             return None
         names = self.router.pool.names
@@ -300,10 +440,17 @@ class PoolServer:
             pc = getattr(eng, "prefix_cache", None)
             if pc is None:
                 continue
+            occ = (self._engine_occupancy(name)
+                   if self.cost_model is not None else 0.0)
             for i, toks in enumerate(tokens):
                 p = pc.peek_len(toks, max_tokens=len(toks) - 1)
                 if p > 0:
-                    disc[i, j] = eng.estimate_prefill_wh(p)
+                    if self.cost_model is not None:
+                        disc[i, j] = self.cost_model.discount_wh(
+                            name, len(toks), queries[i].max_new_tokens,
+                            p, occ)
+                    else:
+                        disc[i, j] = eng.estimate_prefill_wh(p)
         return disc if disc.any() else None
 
     # -- hedged (straggler-mitigating) dispatch ------------------------------------
@@ -314,7 +461,7 @@ class PoolServer:
         work and saves nothing."""
         if getattr(eng, "_failed", False):
             return False
-        return time.monotonic() - eng.heartbeat() <= self.heartbeat_timeout_s
+        return self.clock() - eng.heartbeat() <= self.heartbeat_timeout_s
 
     def _maybe_hedge(self) -> None:
         if self.hedge_after_steps is None:
@@ -335,17 +482,19 @@ class PoolServer:
                                 prompt_tokens=list(req.prompt_tokens),
                                 max_new_tokens=req.max_new_tokens,
                                 hedged=True, hedge_of=uid,
-                                submit_s=time.monotonic())
+                                submit_s=self.clock())
                 self.engines[target].submit(hedge)
                 self.dispatch_counts[target] = (
                     self.dispatch_counts.get(target, 0) + 1)
                 self.hedges[uid] = hedge
                 self.stats["hedges"] += 1
+                if self.telemetry is not None:
+                    self.telemetry.on_hedge(uid, target)
 
     # -- fault tolerance -------------------------------------------------------------
 
     def _check_engines(self) -> None:
-        now = time.monotonic()
+        now = self.clock()
         for name, eng in self.engines.items():
             stalled = now - eng.heartbeat() > self.heartbeat_timeout_s
             if stalled or getattr(eng, "_failed", False):
@@ -354,6 +503,8 @@ class PoolServer:
     def _restart_engine(self, name: str) -> None:
         inflight = self.engines[name].restart()
         self.stats["restarts"] += 1
+        if self.telemetry is not None:
+            self.telemetry.on_restart(name, len(inflight))
         # flush buffered feedback first so re-routing sees the updated
         # bandit, and so no pending decision consumed by the flush is
         # overwritten by the re-route below
@@ -398,6 +549,8 @@ class PoolServer:
             primary.state = RequestState.CANCELLED
         elif primary_uid in self.hedges:    # primary won
             self.hedges[primary_uid].state = RequestState.CANCELLED
+        hedged_pair = (req.hedge_of is not None
+                       or primary_uid in self.hedges)
         accuracy = getattr(resp, "accuracy", None)
         if accuracy is None:
             accuracy = (self.accuracy_fn(primary.query, resp)
@@ -432,6 +585,19 @@ class PoolServer:
                 text_out=resp.text, energy_wh=resp.energy_wh,
                 accuracy=float(accuracy), input_tokens=resp.input_tokens,
                 output_tokens=resp.output_tokens))
+        predicted_wh = None
+        if self.cost_model is not None:
+            # reconcile the admission-time forecast against the metered
+            # Wh and fold the completion into the residual calibration
+            predicted_wh = self.cost_model.observe_response(
+                resp, float(accuracy))
+        if self.telemetry is not None:
+            self.telemetry.on_completion(resp, float(accuracy),
+                                         predicted_wh=predicted_wh)
+            if hedged_pair:
+                # the cancelled duplicate's work never completes; charge
+                # the energy budget for it (winner's cost as proxy)
+                self.telemetry.on_duplicate_work(resp.energy_wh)
 
     # -- main loop ---------------------------------------------------------------------
 
@@ -439,7 +605,8 @@ class PoolServer:
         """One scheduler tick: health checks, hedging, arrival admission
         into free prefill slots, one ``step()`` per engine (each engine
         tick is one chunk-prefill or decode call), one batched feedback
-        flush.  Returns the responses completed this tick."""
+        flush, one telemetry/governor step.  Returns the responses
+        completed this tick."""
         done: List[Response] = []
         self._step_idx += 1
         self._check_engines()
@@ -459,6 +626,10 @@ class PoolServer:
         for uid, req in self.inflight.items():
             if req.state == RequestState.QUEUED:
                 self.wait_steps[uid] = self.wait_steps.get(uid, 0) + 1
+        # telemetry last: power samples see the step's energy, and the
+        # governor's λ adjustment lands after this step's feedback flush
+        if self.telemetry is not None:
+            self.telemetry.on_step(self.engines)
         return done
 
     def _find_request(self, uid: int, engine_name: str) -> Optional[Request]:

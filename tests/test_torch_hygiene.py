@@ -38,6 +38,16 @@ def test_no_jax_or_reference_imports(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
+def test_the_walk_covers_every_subpackage():
+    """Every subpackage of the port has its modules in the import walk —
+    the energy layer (``costmodel``, ``telemetry``) and the launcher
+    among them."""
+    subpackages = {p.parent for p in PORT.rglob("__init__.py")}
+    assert subpackages <= {p.parent for p in FILES}
+    for name in ("costmodel", "telemetry", "launch"):
+        assert PORT / name in subpackages
+
+
 def test_every_port_module_imports_without_jax():
     modules = sorted(
         ".".join(p.relative_to(ROOT / "src").with_suffix("").parts)

@@ -35,6 +35,7 @@ from repro_torch.data import OutcomeSimulator, profiles
 from repro_torch.data import routerbench as rb
 from repro_torch.serving import SimEngine
 from repro_torch.serving.request import Request, RequestState
+from repro_torch.telemetry import Telemetry
 
 pytestmark = pytest.mark.port
 
@@ -302,8 +303,10 @@ def test_drive_pool_stream_answers_each_uid_with_the_same_arm():
                                rtol=1e-12)
     assert got.n_steps == want.n_steps
     assert got.telemetry is None
-    with pytest.raises(NotImplementedError, match="telemetry"):
-        common.drive_pool_stream(pq[:5], telemetry=object(), device="cpu")
+    tel = Telemetry()
+    run = common.drive_pool_stream(pq[:5], telemetry=tel, device="cpu")
+    assert run.telemetry is tel and run.server.telemetry is tel
+    assert tel.registry.find("greenserv_admitted_total").value == 5
 
 
 def test_random_closed_loop_router_identical_to_jax():

@@ -206,7 +206,7 @@ def test_unported_serving_options_raise():
     router = GreenServRouter(RouterConfig(), ModelPool([eng.profile]),
                              device="cpu")
     for kw in (dict(max_retries=1), dict(deadline_s=1.0),
-               dict(telemetry=object())):
+               dict(decode_engines={"g": eng}), dict(breaker_config=object())):
         with pytest.raises(NotImplementedError):
             PoolServer(router, {"g": eng}, **kw)
 

@@ -114,6 +114,40 @@ Phases, in order; any failure raises and the script exits non-zero:
      with the wall-clock governor at the uncached run's spend: every
      query answered, avoided prefix and semantic Wh credited to the
      governor and the export, the final λ printed;
+  5d. the serving path under faults, bursts and churn, every router on
+     the card with featurize "auto": (a) ``benchmarks/scenarios.py``'s
+     flash crowd (per_task 100, planner on, governed at 0.8x the random
+     spend), duplicate flood (60) and pool churn (60: qwen2.5-14b killed
+     at 30% of the span, gemma-3-12b added at 50%) with each bench's
+     checks, the pool churn beside a host-featurize twin router (a copy
+     of the router at its first call) picking the same arms in every
+     batch, before and after the pool grows from 15 to 16 arms, and the
+     baselines' closed loop at its defaults (GreenServ answers all, at
+     least random's accuracy, fewer Wh); (b) ``benchmarks/chaos.py``'s
+     ``main`` at per_task 60 without the fleet variant (its seven
+     invariants) with a host twin of every run's router, equal arms in
+     every batch while breakers open and close; (c) disaggregated
+     prefill/decode at full width on the serving weights (granite-3-8b,
+     qwen2-moe-a2.7b; bf16, ``use_pallas=True``, max_len 192, chunk 8,
+     fresh engines): (c1) tests/test_disagg.py's six queries unified and
+     as a prefill engine plus a decode twin, each migrated K/V bit-equal
+     to the prefill slot and to the twin's slot after the splice; at
+     max_batch 1 identical tokens, at 2 every divergence printed with
+     its top-two logit gaps and held to a rounding tie or to the path
+     that explains it (a unified decode token riding a chunk tick, a
+     MoE tick shared with another row); (c2) the disaggregation bench's
+     MMPP workload (70 users, its timescales scaled by the modeled decode
+     tick, full width over the bench's smoke model) monolithic (4 slots)
+     against the pair (2 + 2): every query answered, migrations only
+     disaggregated, prefill and decode role Wh; TTFT p50/p95/p99 and
+     J/query printed, not gated; (c3) the twin and then the prefill
+     engine killed under ``FaultInjector`` crashes: responses and failed
+     cover every uid once; (c4) the launcher's ``serve`` with
+     ``--disaggregate`` (``--queries 12``: 10 stream queries) over
+     granite, rwkv6 and qwen2-moe: every query answered, rwkv6 unified.
+     The featurize, LinUCB and gating launches are held to the routing
+     calls, cache probes and MoE ticks of each part (host twins' put
+     back);
   6. one-shot prefill: ``api.prefill`` on the four served models at full
      width (granite B=2 S=2048, danube B=1 S=6144, qwen2-moe B=2 S=2048,
      rwkv6 B=2 S=2048) through the flash kernel at every attention layer
@@ -413,6 +447,24 @@ GOV_KEEP = ("qwen2.5-0.5b", "qwen2.5-1.5b", "qwen2.5-7b", "llama-3.1-8b",
 GOV_BATCH, GOV_ARMS = 10, 16
 PLANNER_BUDGET_WH = 0.02       # about two queries of headroom
 POWER_SAMPLE_MS = 250          # nvidia-smi's power.draw sampling period
+# the resilience phase: the scenario lab's three runs at the bench's full
+# sizes and the baselines' closed loop at its defaults; the chaos drill at
+# per_task 60; disaggregation at full width (granite-3-8b and qwen2-moe
+# on the serving weights), tests/test_disagg.py's six queries at
+# max_batch 1 (exact) and its max_batch of 2, the disaggregation bench's
+# MMPP workload with B = 2
+# slots a role, its timescales scaled by the modeled decode tick (full
+# width over the bench's smoke model), and the launcher at 12 queries
+RES_FLASH_PER_TASK = 100
+RES_FLOOD_PER_TASK = RES_CHURN_PER_TASK = RES_CHAOS_PER_TASK = 60
+RES_CHURN_ARMS = (15, 16)      # pool churn: the pool before and after
+DISAGG_ARCHS = ("granite-3-8b", MOE_ARCH)
+DISAGG_QUERIES, DISAGG_SEED = 6, 3
+DISAGG_BATCH = 2
+DISAGG_C1_BATCHES = (1, DISAGG_BATCH)
+DISAGG_USERS = 70              # the MMPP workload's users (both runs)
+DISAGG_KILL_QUERIES = 8
+DISAGG_LAUNCHER_QUERIES = 12
 # WKV shapes: rwkv6's prefill (B, S, H), its dtypes (r, k, v bf16; logw, u
 # and the zero initial state fp32, as forward_hidden passes them), then
 # the same in fp32 with a nonzero initial state, then a ragged S, S = 1
@@ -2452,6 +2504,601 @@ def energy_phase(dev, engines, cache_off_joules: float) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# 5d. the serving path under faults, bursts and churn: the scenario lab,
+#     the chaos drill and disaggregated prefill/decode
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def routed(router_cls, mirror: bool = False):
+    """While active, record every routing call of a device-featurize
+    ``router_cls`` (and every device cache probe): per call, its arms, the
+    pool's size and whether it featurized (no embeddings forwarded from a
+    probe).  With ``mirror``, each such router also gets a host-featurize
+    twin at its first call — a copy of it then, on the same card, with
+    featurize "host" — that replays its every ``route_batch`` and
+    ``feedback_batch`` with the same arguments and the same breaker mask,
+    and joins every model its pool gains; the twin's arms are recorded
+    beside the router's, and its launches, being comparisons, are put
+    back.  Yields ``{"batches": [(arms, twin arms or None, pool size,
+    featurized)], "probes": n}``."""
+    import threading
+
+    from repro_torch.core.context import ContextGenerator
+
+    route, feedback = router_cls.route_batch, router_cls.feedback_batch
+    probe = ContextGenerator.probe_batch
+    twins, twin_ids = {}, set()
+    ledger = {"batches": [], "probes": 0}
+
+    def twin_of(router):
+        pair = twins.get(id(router))
+        if pair is None:
+            # the breaker mask's provider is the server's bound method:
+            # the copy must not take the server along
+            health, router._arm_health = router._arm_health, None
+            try:
+                twin = copy.deepcopy(
+                    router, {id(router.pool._lock): threading.RLock()})
+            finally:
+                router._arm_health = health
+            twin.config.featurize = "host"
+            pair = twins[id(router)] = (router, twin)
+            twin_ids.add(id(twin))
+        twin = pair[1]
+        for i in range(len(twin.pool), len(router.pool)):
+            twin.pool.add(router.pool[i])
+        twin._arm_health = router._arm_health
+        if twin.config.lam != router.config.lam:
+            twin.set_lambda(router.config.lam)
+        return twin
+
+    def routing(self, queries, *args, **kwargs):
+        if (not queries or id(self) in twin_ids
+                or not self._device_featurize_active()):
+            return route(self, queries, *args, **kwargs)
+        twin = twin_of(self) if mirror else None
+        decisions = route(self, queries, *args, **kwargs)
+        mirrored = None
+        if twin is not None:
+            saved = read_launches()
+            mirrored = [d.model_index
+                        for d in route(twin, queries, *args, **kwargs)]
+            set_launches(saved)
+        ledger["batches"].append(
+            ([d.model_index for d in decisions], mirrored, len(self.pool),
+             kwargs.get("embeddings") is None))
+        return decisions
+
+    def feeding(self, fbs, *args, **kwargs):
+        out = feedback(self, fbs, *args, **kwargs)
+        pair = twins.get(id(self))
+        if pair is not None and pair[0] is self:
+            saved = read_launches()
+            feedback(pair[1], fbs, *args, **kwargs)
+            set_launches(saved)
+        return out
+
+    def probing(self, texts):
+        if texts and self.device_active:
+            ledger["probes"] += 1
+        return probe(self, texts)
+
+    router_cls.route_batch, router_cls.feedback_batch = routing, feeding
+    ContextGenerator.probe_batch = probing
+    try:
+        yield ledger
+    finally:
+        router_cls.route_batch, router_cls.feedback_batch = route, feedback
+        ContextGenerator.probe_batch = probe
+
+
+def ledger_launches(what: str, ledger: dict, moe_ticks: int = 0,
+                    moe_layers: int = 0) -> dict:
+    """The router kernels' launches since the last reset held against the
+    ledger's routing calls (one LinUCB launch each; one featurize launch
+    each that featurized, and one per device cache probe), and the gating
+    kernel's against the MoE engines' ticks; resets the counts."""
+    got = read_launches()
+    want = {"featurize": ledger["probes"] + sum(b[3] for b in
+                                                ledger["batches"]),
+            "linucb": len(ledger["batches"]),
+            "moe_gating": moe_layers * moe_ticks}
+    if {k: got[k] for k in want} != want:
+        raise AssertionError(f"{what}: launches {got}, expected {want}")
+    if not want["linucb"]:
+        raise AssertionError(f"{what}: no routing call on the device path")
+    reset_launches()
+    return want
+
+
+def twin_check(what: str, ledger: dict) -> None:
+    """The device router and its host twin picked the same arms in every
+    routed batch."""
+    differ = [i for i, b in enumerate(ledger["batches"]) if b[0] != b[1]]
+    if differ:
+        raise AssertionError(f"{what}: the device router and its host twin "
+                             f"picked different arms in batches "
+                             f"{differ[:8]}: {ledger['batches'][differ[0]]}")
+
+
+def scenario_part(dev, tally) -> None:
+    """(a) ``benchmarks/scenarios.py``'s three runs with their checks (the
+    pool churn with a host twin, equal arms in every batch before and after
+    the pool grows) and the baselines' closed loop at its defaults."""
+    from repro_torch.benchmarks import baselines
+    from repro_torch.benchmarks import scenarios as lab
+    from repro_torch.core.router import GreenServRouter
+
+    runs = (("flash crowd", lab.run_flash_crowd, RES_FLASH_PER_TASK, False),
+            ("duplicate flood", lab.run_duplicate_flood, RES_FLOOD_PER_TASK,
+             False),
+            ("pool churn", lab.run_pool_churn, RES_CHURN_PER_TASK, True))
+    for name, run, per_task, mirror in runs:
+        reset_launches()
+        t = time.perf_counter()
+        with routed(GreenServRouter, mirror=mirror) as ledger:
+            res, checks = run(per_task=per_task, device=dev)
+        secs = time.perf_counter() - t
+        tally(ledger_launches(f"(a) {name}", ledger))
+        twin = ""
+        if mirror:
+            twin_check(f"(a) {name}", ledger)
+            sizes = sorted({b[2] for b in ledger["batches"]})
+            if sizes != list(RES_CHURN_ARMS):
+                raise AssertionError(f"(a) {name}: routed at pool sizes "
+                                     f"{sizes}, not {RES_CHURN_ARMS}")
+            after = sum(b[2] == RES_CHURN_ARMS[1] for b in ledger["batches"])
+            twin = (f"; device == host-twin arms in all "
+                    f"{len(ledger['batches'])} batches ({after} after the "
+                    f"pool grew to {RES_CHURN_ARMS[1]} arms)")
+        s = res.stats
+        log("resilience", f"(a) {name} (per_task {per_task}): "
+            f"{res.completed}/{res.n_queries} answered, {res.failed} "
+            f"failed, accuracy {res.mean_accuracy:.4f}, "
+            f"{res.total_energy_wh:.6f} Wh, span {res.span_s:.3f} "
+            f"modeled s, {res.server._step_idx} steps in {secs:.2f} s; "
+            f"cache hits {s['cache_hits']}, restarts {s['restarts']}, "
+            f"deferred {s['deferred']}; {len(ledger['batches'])} routed "
+            f"batches, {ledger['probes']} probes; the bench's "
+            f"{len(checks)} checks held{twin}")
+    reset_launches()
+    t = time.perf_counter()
+    with routed(GreenServRouter) as ledger:
+        closed = baselines.run_closed_loop(device=dev)
+    secs = time.perf_counter() - t
+    tally(ledger_launches("(a) baselines' closed loop", ledger))
+    gs, rnd = closed["greenserv"], closed["random"]
+    checks = [(gs["completed"] == gs["n_queries"], "GreenServ answered all"),
+              (gs["mean_accuracy"] >= rnd["mean_accuracy"] - 1e-9,
+               "GreenServ accuracy >= random"),
+              (gs["total_energy_wh"] < rnd["total_energy_wh"],
+               "GreenServ Wh < random")]
+    failed = [m for ok, m in checks if not ok]
+    if failed:
+        raise AssertionError(f"(a) baselines' closed loop: {failed}: {gs} "
+                             f"vs {rnd}")
+    log("resilience", "(a) baselines' closed loop (steady, per_task 200, "
+        "governed at 0.8x the random spend, planner on): " + "; ".join(
+            f"{p} {r['completed']}/{r['n_queries']} answered, accuracy "
+            f"{r['mean_accuracy']:.4f}, {r['total_energy_wh']:.6f} Wh, "
+            f"cache hits {r['stats']['cache_hits']}, deferred "
+            f"{r['stats']['deferred']}" for p, r in closed.items())
+        + f"; {len(ledger['batches'])} routed batches in {secs:.2f} s")
+
+
+def chaos_part(dev, tally) -> None:
+    """(b) ``benchmarks/chaos.py``'s ``main`` (its seven invariants) with a
+    host twin of every run's router: equal arms in every batch while the
+    breakers open and close."""
+    from repro_torch.benchmarks import chaos
+    from repro_torch.core.router import GreenServRouter
+
+    reset_launches()
+    t = time.perf_counter()
+    with routed(GreenServRouter, mirror=True) as ledger:
+        lines = chaos.main(per_task=RES_CHAOS_PER_TASK, artifact=None,
+                           device=dev)
+    secs = time.perf_counter() - t
+    tally(ledger_launches("(b) chaos", ledger))
+    twin_check("(b) chaos", ledger)
+    log("resilience", f"(b) chaos drill (per_task {RES_CHAOS_PER_TASK}, "
+        f"calibration + reliability + baseline runs) in {secs:.2f} s, the "
+        f"seven invariants held; device == host-twin arms in all "
+        f"{len(ledger['batches'])} batches: " + " | ".join(lines))
+
+
+def disagg_queries(n: int, seed: int = 0, max_new=(2, 6)) -> list:
+    """``tests/test_disagg.py``'s ``_queries``."""
+    from repro_torch.core.types import Query
+
+    rng = np.random.default_rng(seed)
+    return [Query(uid=i,
+                  text=f"probe {i} " + "ctx " * int(rng.integers(1, 7)),
+                  max_new_tokens=int(rng.integers(*max_new)))
+            for i in range(n)]
+
+
+def record_tokens(eng, seen: dict) -> None:
+    """Record, per request uid, every generated token of ``eng`` with the
+    top-two logit gap and the top logit of the row that produced it, the
+    kind of tick ("chunk" or "decode") and the live rows it held."""
+    read, advance = eng._read_next, eng._advance_slots
+    chunk, decode = eng._chunk_tick, eng._decode_tick
+    last = {}
+
+    def reading(logits):
+        top = torch.topk(logits.float(), 2, dim=-1).values
+        last["top"] = top.cpu().numpy()
+        return read(logits)
+
+    def ticking(kind, tick):
+        def run():
+            last["kind"] = kind
+            return tick()
+        return run
+
+    def advancing(next_tok, fed_prompt):
+        before = [(r, len(r.generated)) if r is not None else None
+                  for r in eng.slots]
+        live = sum(b is not None for b in before)
+        out = advance(next_tok, fed_prompt)
+        for i, b in enumerate(before):
+            if b is not None and len(b[0].generated) > b[1]:
+                top = last["top"][i]
+                seen.setdefault(b[0].uid, []).append(
+                    (b[0].generated[-1], float(top[0] - top[1]),
+                     float(top[0]), last["kind"], live))
+        return out
+
+    eng._read_next, eng._advance_slots = reading, advancing
+    eng._chunk_tick = ticking("chunk", chunk)
+    eng._decode_tick = ticking("decode", decode)
+
+
+def check_migrations(prefill, twin, held: list) -> None:
+    """At every phase boundary the payload is a copy of the prefill slot's
+    prompt K/V, bit for bit, and the twin's slot holds it after the
+    splice; ``held`` gets one entry a migration."""
+    emit, splice = prefill._emit_migration, twin._splice_migration
+
+    def emitting(slot, req):
+        emit(slot, req)
+        if req.kv_payload is None:
+            return
+        n = req.kv_migrated
+        k, v = req.kv_payload
+        if not (torch.equal(k, prefill.cache["k"][:, slot, :n])
+                and torch.equal(v, prefill.cache["v"][:, slot, :n])
+                and k.data_ptr() != prefill.cache["k"].data_ptr()):
+            raise AssertionError(f"(c1) uid {req.uid}: the payload is not "
+                                 f"a copy of the slot's prompt K/V")
+
+    def splicing(slot, req):
+        k, v = req.kv_payload
+        splice(slot, req)
+        n = req.kv_migrated
+        if not (torch.equal(twin.cache["k"][:, slot, :n], k)
+                and torch.equal(twin.cache["v"][:, slot, :n], v)):
+            raise AssertionError(f"(c1) uid {req.uid}: the twin's slot "
+                                 f"does not hold the migrated K/V")
+        held.append(n)
+
+    prefill._emit_migration, twin._splice_migration = emitting, splicing
+
+
+def bf16_unit(x: float) -> float:
+    """One bf16 unit (8 significant bits) at ``x``."""
+    return 2.0 ** (np.floor(np.log2(max(abs(x), 1e-30))) - 7)
+
+
+def c1_pair(arch, batch, fresh, server_of, ticks, tally) -> None:
+    """(c1) one architecture at one ``max_batch``: test_disagg's queries
+    unified and as a prefill engine plus a decode twin, the migrated K/V
+    bit-equal to the prefill slot's.  At max_batch 1 every decode token
+    runs through ``serve_step`` at batch 1 in both runs, so the tokens
+    must be identical.  At 2 the unified engine's decode tokens ride in
+    chunk ticks while a neighbour prefills (the twin decodes them in
+    decode ticks), and a MoE layer's expert groups hold the neighbours'
+    tokens: other kernels, other bf16 rounding, amplified by the random
+    full-depth stack.  A divergence there passes when it is a rounding
+    tie (the top-two logit gap at the first diverging token, in either
+    run, within one bf16 unit) or when the path explains it: some decode
+    token of the uid up to it rode a chunk tick in the unified run, or,
+    in a MoE model, some token up to it shared its tick with another live
+    row in either run.  A divergence along the same path fails."""
+    from repro_torch.core.router import GreenServRouter
+
+    n_moe = fresh(arch).cfg.n_layers if arch == MOE_ARCH else 0
+    runs, seen = {}, {}
+    t = time.perf_counter()
+    for mode in ("unified", "disaggregated"):
+        reset_launches()
+        eng = fresh(arch, batch=batch)
+        twin = (fresh(arch, "decode", batch=batch)
+                if mode == "disaggregated" else None)
+        seen[mode], held = {}, []
+        record_tokens(eng, seen[mode])
+        if twin is not None:
+            record_tokens(twin, seen[mode])
+            check_migrations(eng, twin, held)
+        server = server_of(eng, twin)
+        with routed(GreenServRouter) as ledger:
+            for q in disagg_queries(DISAGG_QUERIES, DISAGG_SEED):
+                server.enqueue(q)
+                server.step()
+            server.run_until_drained(max_steps=2_000)
+        torch.cuda.synchronize()
+        parts = [eng] + ([twin] if twin is not None else [])
+        tally(ledger_launches(f"(c1) {arch} B={batch} {mode}", ledger,
+                              ticks(*parts), n_moe))
+        runs[mode] = (server, eng, twin, held)
+    secs = time.perf_counter() - t
+    what = f"(c1) {arch} max_batch {batch}"
+    uni, dis = runs["unified"][0], runs["disaggregated"][0]
+    eng, twin, held = runs["disaggregated"][1:]
+    if not (sorted(uni.responses) == sorted(dis.responses)
+            == list(range(DISAGG_QUERIES))):
+        raise AssertionError(f"{what}: answered {sorted(uni.responses)} / "
+                             f"{sorted(dis.responses)}")
+    if not (dis.stats["migrations"] == len(held) > 0
+            and eng.cumulative_joules_by_phase()["decode"] == 0
+            and twin.cumulative_joules_by_phase()["decode"] > 0):
+        raise AssertionError(f"{what}: {dis.stats['migrations']} "
+                             f"migrations, {len(held)} landed; phases "
+                             f"{eng.cumulative_joules_by_phase()} / "
+                             f"{twin.cumulative_joules_by_phase()}")
+    ties = []
+    for uid in range(DISAGG_QUERIES):
+        a = [x[0] for x in seen["unified"][uid]]
+        b = [x[0] for x in seen["disaggregated"][uid]]
+        if a == b and uni.responses[uid].tokens == dis.responses[uid].tokens:
+            continue
+        p = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                 min(len(a), len(b)))
+        if p == min(len(a), len(b)):
+            raise AssertionError(f"{what}: uid {uid} generated {a} unified "
+                                 f"and {b} disaggregated")
+        gaps = {m: seen[m][uid][p][1:3] for m in seen}
+        units = {m: bf16_unit(top) for m, (_, top) in gaps.items()}
+        tie = any(gaps[m][0] <= units[m] for m in gaps)
+        steps = {m: seen[m][uid][:p + 1] for m in seen}
+        rode = [t for t, x in enumerate(steps["unified"])
+                if t and x[3] == "chunk"]
+        shared = [t for t in range(p + 1) if n_moe and any(
+            steps[m][t][4] > 1 for m in steps)]
+        log("resilience", f"{what}: uid {uid} diverges at token {p}: "
+            f"unified {a[p:p + 3]} vs disaggregated {b[p:p + 3]}; top-two "
+            f"logit gap " + " / ".join(
+                f"{gaps[m][0]:.6g} ({m}; one bf16 unit at its top logit "
+                f"{gaps[m][1]:.6g} is {units[m]:.6g})" for m in gaps)
+            + f"; unified tokens 1..{p} that rode chunk ticks: {rode}"
+            + (f"; tokens whose MoE tick held another live row: {shared}"
+               if n_moe else ""))
+        if batch == 1 or not (tie or rode or shared):
+            raise AssertionError(f"{what}: uid {uid} diverged at token {p} "
+                                 f"along the same path, top-two gaps "
+                                 f"{gaps}")
+        ties.append(uid)
+    wh = [sum(r.energy_wh for r in s.responses.values()) for s in (uni, dis)]
+    log("resilience", f"{what} (bf16, chunk {SERVE_CHUNK}): "
+        f"{DISAGG_QUERIES}/{DISAGG_QUERIES} answered both ways in "
+        f"{secs:.2f} s; tokens identical for {DISAGG_QUERIES - len(ties)}/"
+        f"{DISAGG_QUERIES} uids"
+        + (f" (uids {ties} diverge as above)" if ties else "")
+        + f"; {len(held)} migrations of {held} prompt tokens, each payload "
+        f"bit-equal to the prefill slot and to the twin's slot after the "
+        f"splice; {uni._step_idx} / {dis._step_idx} steps; {wh[0]:.9f} / "
+        f"{wh[1]:.9f} Wh; the prefill engine's decode ledger 0 J, the "
+        f"twin's prefill ledger "
+        f"{twin.cumulative_joules_by_phase()['prefill']:.6f} J == its "
+        f"migration transfers {twin._migration_joules:.6f} J")
+
+
+def disagg_part(dev, engines, tally) -> None:
+    """(c) disaggregated prefill/decode at full width on the serving
+    weights: (c1) unified vs prefill + decode twin on test_disagg's
+    queries, (c2) the disaggregation bench's MMPP workload, (c3) the twin
+    and then the prefill engine killed under a ``FaultInjector``, (c4) the
+    launcher's ``serve`` with ``--disaggregate``."""
+    from repro_torch.benchmarks import disagg as disagg_bench
+    from repro_torch.configs import get_config
+    from repro_torch.core.energy import (CostModelParams, decode_step_cost,
+                                         roofline)
+    from repro_torch.core.pool import ModelPool
+    from repro_torch.core.router import GreenServRouter
+    from repro_torch.core.types import RouterConfig
+    from repro_torch.data import tokenizer as tok
+    from repro_torch.launch import serve as launcher
+    from repro_torch.serving import (FaultInjector, FaultSpec, ModelEngine,
+                                     PoolServer)
+
+    def fresh(arch, role="unified", batch=DISAGG_BATCH):
+        src = engines[arch]
+        return ModelEngine(arch, src.cfg, params=src.params, max_batch=batch,
+                           max_len=SERVE_MAX_LEN, detokenize=tok.decode,
+                           prefill_chunk=SERVE_CHUNK, role=role, device=dev)
+
+    def server_of(eng, twin=None, **kw):
+        router = GreenServRouter(RouterConfig(lam=0.4, energy_scale_wh=0.05),
+                                 ModelPool([eng.profile]), device=dev)
+        return PoolServer(router, {eng.name: eng}, tokenizer=tok.encode,
+                          prefill_chunk=SERVE_CHUNK,
+                          decode_engines={eng.name: twin} if twin else None,
+                          **kw)
+
+    def ticks(*engs):
+        return sum(sum(e.tick_counts.values()) for e in engs)
+
+    # (c1) unified == disaggregated, token for token
+    for arch in DISAGG_ARCHS:
+        for batch in DISAGG_C1_BATCHES:
+            c1_pair(arch, batch, fresh, server_of, ticks, tally)
+
+    # (c2) the MMPP workload, monolithic 2B slots vs the pair B + B
+    src = engines["granite-3-8b"]
+    smoke = get_config("granite-3-8b", smoke=True, vocab_size=tok.VOCAB_SIZE,
+                       dtype="float32", max_seq_len=disagg_bench.MAX_LEN)
+    smoke_cp = CostModelParams(
+        n_params=float(smoke.param_count()),
+        n_active_params=float(smoke.active_param_count()),
+        d_model=smoke.d_model, n_layers=smoke.n_layers,
+        kv_heads=max(smoke.n_kv_heads, 1), head_dim=smoke.head_dim)
+    scale = (roofline(*decode_step_cost(src.cost_params, 64), 0.0, 1).t_step
+             / roofline(*decode_step_cost(smoke_cp, 64), 0.0, 1).t_step)
+    queries, arrivals = disagg_bench.make_workload(
+        DISAGG_USERS, seed=0, calm_s=2e-6 * scale, burst_s=2.5e-7 * scale)
+    runs = {}
+    t = time.perf_counter()
+    for d in (False, True):
+        reset_launches()
+        with routed(GreenServRouter) as ledger:
+            r = disagg_bench.drive(
+                queries, arrivals, disaggregate=d, arch="granite-3-8b",
+                slots_per_role=DISAGG_BATCH, prefill_chunk=SERVE_CHUNK,
+                cfg=src.cfg, params=src.params, max_len=SERVE_MAX_LEN,
+                device=dev)
+        torch.cuda.synchronize()
+        tally(ledger_launches(f"(c2) {r['mode']}", ledger))
+        r["seconds"] = time.perf_counter() - t
+        t = time.perf_counter()
+        runs[r["mode"]] = r
+    mono, dis = runs["monolithic"], runs["disaggregated"]
+    if not (mono["completed"] == dis["completed"] == len(queries)
+            and dis["migrations"] > 0 and mono["migrations"] == 0
+            and dis["role_wh"]["prefill"] > 0 and dis["role_wh"]["decode"] > 0
+            and mono["role_wh"]["unified"] > 0):
+        raise AssertionError(f"(c2) {mono['completed']} / {dis['completed']} "
+                             f"of {len(queries)} answered; migrations "
+                             f"{mono['migrations']} / {dis['migrations']}; "
+                             f"role Wh {mono['role_wh']} / {dis['role_wh']}")
+    for r in (mono, dis):
+        log("resilience", f"(c2) {r['mode']}: {r['completed']}/"
+            f"{len(queries)} answered in {r['seconds']:.2f} s "
+            f"({r['steps']} steps), TTFT p50/p95/p99 {r['ttft_p50_s']:.6g} /"
+            f" {r['ttft_p95_s']:.6g} / {r['ttft_p99_s']:.6g} modeled s, "
+            f"{r['joules_per_query']:.6g} J a query, {r['migrations']} "
+            f"migrations, role Wh {r['role_wh']}")
+    cut = {k: 1 - dis[k] / max(mono[k], 1e-12)
+           for k in ("ttft_p99_s", "joules_per_query")}
+    log("resilience", f"(c2) {len(queries)} users, timescales x{scale:.6g} "
+        f"the bench's (calm {2e-6 * scale:.6g} s, burst "
+        f"{2.5e-7 * scale:.6g} s): p99 TTFT cut {cut['ttft_p99_s']:.2%}, "
+        f"J/query cut {cut['joules_per_query']:.2%} (reported, not gated)")
+
+    # (c3) the decode twin, then the prefill engine, killed mid-stream
+    clk = {"t": 0.0}
+    eng, twin = fresh("granite-3-8b"), fresh("granite-3-8b", "decode")
+    p_inj = FaultInjector(eng, [], clock=lambda: clk["t"])
+    d_inj = FaultInjector(twin, [], clock=lambda: clk["t"])
+    server = server_of(p_inj, d_inj, clock=lambda: clk["t"],
+                       heartbeat_timeout_s=1e18, max_retries=2,
+                       retry_backoff_steps=1)
+    queries = disagg_queries(DISAGG_KILL_QUERIES, 13, (4, 9))
+    reset_launches()
+    t = time.perf_counter()
+    kills = {}
+    with routed(GreenServRouter) as ledger:
+        server.enqueue_many(queries)
+        for _ in range(2_000):
+            if not server.inflight and not server.arrivals:
+                break
+            server.step()
+            clk["t"] += 1.0
+            if "decode" not in kills and any(s is not None
+                                             for s in twin.slots):
+                d_inj.faults = [FaultSpec(t_s=clk["t"], kind="crash")]
+                kills["decode"] = (clk["t"], len(server.inflight))
+            elif ("decode" in kills and "prefill" not in kills
+                  and clk["t"] > kills["decode"][0] + 2
+                  and any(s is not None for s in eng.slots)):
+                p_inj.faults = [FaultSpec(t_s=clk["t"], kind="crash")]
+                kills["prefill"] = (clk["t"], len(server.inflight))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    tally(ledger_launches("(c3) kills", ledger))
+    uids = {q.uid for q in queries}
+    if not (set(server.responses) | set(server.failed) == uids
+            and not set(server.responses) & set(server.failed)
+            and len(kills) == 2 and p_inj.stats["crashes"] == 1
+            and d_inj.stats["crashes"] == 1
+            and server.stats["restarts"] >= 2):
+        raise AssertionError(f"(c3) responses {sorted(server.responses)}, "
+                             f"failed {sorted(server.failed)}, kills {kills}, "
+                             f"crashes {p_inj.stats} / {d_inj.stats}, stats "
+                             f"{server.stats}")
+    log("resilience", f"(c3) the decode twin killed at step "
+        f"{kills['decode'][0]:.0f} ({kills['decode'][1]} in flight), the "
+        f"prefill engine at step {kills['prefill'][0]:.0f} "
+        f"({kills['prefill'][1]} in flight), through FaultInjector crashes: "
+        f"{len(server.responses)} answered + {len(server.failed)} failed == "
+        f"{len(uids)} uids, each once; {server.stats['restarts']} restarts, "
+        f"{server.stats['retries']} retries, {server.stats['migrations']} "
+        f"migrations, {server._step_idx} steps in {secs:.2f} s")
+
+    # (c4) the launcher's serve with --disaggregate over its default pool
+    args = launcher.build_parser().parse_args(
+        ["--queries", str(DISAGG_LAUNCHER_QUERIES), "--disaggregate",
+         "--device", str(dev)])
+    prim = {a: fresh(a, batch=4) for a in args.pool}
+    twins = {a: fresh(a, "decode", batch=4) for a in args.pool}
+    moe = [e for e in (prim.get(MOE_ARCH), twins.get(MOE_ARCH)) if e]
+    reset_launches()
+    t = time.perf_counter()
+    with routed(GreenServRouter) as ledger:
+        run = launcher.serve(args, prim,
+                             ModelPool([e.profile for e in prim.values()]),
+                             twins)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    tally(ledger_launches("(c4) the launcher", ledger, ticks(*moe),
+                          engines[MOE_ARCH].cfg.n_layers))
+    server = run["server"]
+    # the launcher draws --queries // 5 stream queries a task: 10 for 12
+    if not (len(server.responses) == len(run["queries"])
+            == DISAGG_LAUNCHER_QUERIES // 5 * 5
+            and prim[RWKV_ARCH].role == "unified"
+            and RWKV_ARCH not in server.decode_engines
+            and all(server.decode_engines[a].role == "decode"
+                    and prim[a].role == "prefill"
+                    for a in args.pool if a != RWKV_ARCH)):
+        raise AssertionError(f"(c4) {len(server.responses)}/"
+                             f"{len(run['queries'])} answered; roles "
+                             f"{ {a: e.role for a, e in prim.items()} }; "
+                             f"twins {list(server.decode_engines)}")
+    router = run["router"]
+    log("resilience", f"(c4) launcher --disaggregate over {args.pool}: "
+        f"{len(server.responses)}/{len(run['queries'])} answered (--queries "
+        f"{DISAGG_LAUNCHER_QUERIES}) in "
+        f"{secs:.2f} s ({server._step_idx} steps), rwkv6 unified, twins for "
+        f"{sorted(server.decode_engines)}; {server.stats['migrations']} "
+        f"migrations; arms "
+        f"{dict(zip(router.pool.names, map(int, router.selection_counts())))}")
+
+
+def resilience_phase(dev, engines) -> dict:
+    """The serving path under faults, bursts and churn on the card, every
+    router with featurize "auto": (a) the scenario lab, (b) the chaos
+    drill, (c) disaggregation at full width.  Returns the router kernels'
+    and the gating kernel's launches."""
+    launches = {"featurize": 0, "linucb": 0, "moe_gating": 0}
+
+    def tally(got):
+        for k in launches:
+            launches[k] += got.get(k, 0)
+
+    for name, part in (("(a) scenarios", lambda: scenario_part(dev, tally)),
+                       ("(b) chaos", lambda: chaos_part(dev, tally)),
+                       ("(c) disaggregation",
+                        lambda: disagg_part(dev, engines, tally))):
+        t = time.perf_counter()
+        part()
+        gc.collect()
+        log("resilience", f"{name}: {time.perf_counter() - t:.2f} s")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # 6. one-shot prefill at full width through the flash, gating and WKV
 #    kernels
 # ---------------------------------------------------------------------------
@@ -3313,6 +3960,10 @@ def main() -> int:
     energy = energy_phase(dev, engines, cache_off_joules)
     log("energy", f"phase {time.perf_counter() - t:.2f} s")
     t = time.perf_counter()
+    resilience = resilience_phase(dev, engines)
+    log("resilience", f"phase {time.perf_counter() - t:.2f} s; launches "
+        f"{resilience}")
+    t = time.perf_counter()
     prefill = prefill_phase(dev, engines)
     del engines
     torch.cuda.empty_cache()
@@ -3358,13 +4009,15 @@ def main() -> int:
     kernels = [
         row("featurize", "featurize.cu", "featurize/kernel.py:37",
             launches["featurize"] + paper["featurize"] + cached["featurize"]
-            + energy["featurize"], feat["worst"], f1),
+            + energy["featurize"] + resilience["featurize"], feat["worst"],
+            f1),
         row("linucb", "linucb.cu", "linucb/kernel.py:25",
             launches["linucb"] + paper["linucb"] + cached["linucb"]
-            + energy["linucb"], lin["worst"], l1),
+            + energy["linucb"] + resilience["linucb"], lin["worst"], l1),
         row("moe_gating", "moe_gating.cu", "moe_gating/kernel.py:23",
             launches["moe_gating"] + cached["moe_gating"]
-            + energy["moe_gating"], gate["worst"], g4),
+            + energy["moe_gating"] + resilience["moe_gating"], gate["worst"],
+            g4),
         row("flash_attention", "flash_attention.cu",
             "flash_attention/kernel.py:33",
             prefill["flash_attention"] + hybrid["flash_attention"]

@@ -7,29 +7,41 @@ Two drive modes share this module:
     numbers in isolation from the serving stack;
   * the paced serving drive (``drive_pool_stream``) — the same streams
     through ``PoolServer.submit_batch`` → ``route_batch`` over one
-    ``SimEngine`` per pool member.
+    ``SimEngine`` per pool member;
+  * the *closed-loop* scenario drive (``run_scenario``) — a
+    ``repro_torch.data.scenarios`` stream through the full production
+    path on a virtual clock: ``PoolServer.enqueue`` → GreenCache probe →
+    ``route_batch`` (cost-model tilt) → governor, with mid-run pool
+    events, chaos fault schedules and the reliability layer.  Every
+    closed-loop run gives the uniform trajectory record (``run_record``
+    / ``write_bench_artifact``).
 
 Every router here is built on ``device`` (None: the card);
 ``make_router`` also takes the featurize placement ("auto": the device
-path when the device is CUDA).  The
-JAX package's closed-loop scenario drive (``run_scenario``, ``run_record``,
-``ClosedLoopResult``) waits for the port's scenario lab (the cache's own
-workload and drive are ``benchmarks/cache.py``).
+path when the device is CUDA).  The cache's own workload and drive are
+``benchmarks/cache.py``.
 """
 from __future__ import annotations
 
 import dataclasses
+import json
 import time
-from typing import Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 
 from repro_torch.configs.pool import PAPER_POOL, build_paper_pool, make_profile
+from repro_torch.cache import GreenCache
 from repro_torch.core.router import GreenServRouter
 from repro_torch.core.types import Feedback, Query, RouteDecision, RouterConfig
+from repro_torch.costmodel import EnergyCostModel
 from repro_torch.data import ENERGY_SCALE_WH, OutcomeSimulator
+from repro_torch.data.scenarios import Scenario
 from repro_torch.data.stream import labeled_sample, make_stream
-from repro_torch.serving import PoolServer, SimEngine
+from repro_torch.serving import (FaultInjector, LivelockError, PoolServer,
+                                 SimEngine)
+from repro_torch.telemetry.budget import EnergyBudgetGovernor
+from repro_torch.telemetry.hub import Telemetry
 
 
 @dataclasses.dataclass
@@ -249,3 +261,204 @@ def make_closed_loop_router(policy: str = "greenserv", lam: float = 0.2,
     if fit_classifier:
         _fit_classifier(router, seed)
     return router
+
+
+@dataclasses.dataclass
+class ClosedLoopResult:
+    """Outcome of one ``run_scenario`` drive (and the source of the
+    uniform BENCH run record, ``run_record``)."""
+
+    name: str
+    mean_accuracy: float
+    total_energy_wh: float
+    completed: int
+    n_queries: int
+    span_s: float                       # modeled seconds start → drain
+    stats: Dict[str, int]               # PoolServer.stats copy
+    trajectory: List[dict]
+    avoided_wh: float                   # prefix-KV reuse credit (engines)
+    server: object
+    telemetry: object
+    failed: int = 0                     # terminal TIMED_OUT/FAILED uids
+
+
+def run_record(result: ClosedLoopResult) -> dict:
+    """The uniform per-run payload every BENCH artifact embeds."""
+    return {
+        "mean_accuracy": float(result.mean_accuracy),
+        "total_energy_wh": float(result.total_energy_wh),
+        "wh_per_query": float(result.total_energy_wh
+                              / max(result.completed, 1)),
+        "completed": int(result.completed),
+        "failed": int(result.failed),
+        "n_queries": int(result.n_queries),
+        "span_s": float(result.span_s),
+        "avoided_wh": float(result.avoided_wh),
+        "stats": {k: int(v) for k, v in result.stats.items()},
+        "trajectory": result.trajectory,
+    }
+
+
+def write_bench_artifact(path: str, bench: str, seed: int,
+                         headline: Dict[str, float],
+                         runs: Dict[str, dict]) -> None:
+    """The uniform BENCH_*.json schema every bench and scenario emits:
+    ``{"bench", "seed", "headline", "runs"}`` where each run carries a
+    ``trajectory`` list, so runs diff across commits."""
+    with open(path, "w") as f:
+        json.dump({"bench": bench, "seed": int(seed),
+                   "headline": {k: float(v) for k, v in headline.items()},
+                   "runs": runs}, f, indent=1, sort_keys=True)
+
+
+def run_scenario(scenario: Scenario, router: GreenServRouter,
+                 outcome_fn: Optional[Callable] = None, *,
+                 name: Optional[str] = None,
+                 seed: int = 0,
+                 concurrency: int = 4,
+                 steps_per_query: int = 1,
+                 cache_mode: str = "full",
+                 semantic_threshold: float = 0.92,
+                 budget_wh_per_query: Optional[float] = None,
+                 governor_kwargs: Optional[dict] = None,
+                 admission_planner: bool = False,
+                 use_cost_model: bool = True,
+                 hedge_after_steps: Optional[int] = None,
+                 engine_factory: Optional[Callable] = None,
+                 server_kwargs: Optional[dict] = None,
+                 trace_every: int = 25,
+                 max_steps: int = 250_000) -> ClosedLoopResult:
+    """Drive one scenario through the full closed loop on a virtual clock.
+
+    The loop mirrors ``benchmarks/disagg.py``'s ``drive``: the clock idle-jumps to the
+    next arrival when the pool is empty, due arrivals go through
+    ``PoolServer.enqueue`` (admission happens at step() capacity), pool
+    events fire when the clock passes them, and each tick advances the
+    clock by the pool-wide modeled-time delta.  Engines, caches, the
+    governor, telemetry, and the scheduler all share the *same* clock —
+    no wall time leaks into TTFT/queue stats or TTL decisions.
+
+    ``budget_wh_per_query`` arms an ``EnergyBudgetGovernor`` sized to the
+    scenario (budget = per-query × n_queries) with the scenario's
+    ``carbon_fn``; ``admission_planner`` additionally gates admission on
+    its headroom.  ``engine_factory(profile, clock)`` overrides SimEngine
+    construction for non-paper pools (RouterBench tables).
+
+    ``server_kwargs`` passes extra PoolServer knobs straight through —
+    the reliability layer rides in here (``deadline_s``, ``max_retries``,
+    ``retry_backoff_steps``, ``breaker_config``).  When the scenario
+    carries a ``faults`` plan, each named engine is wrapped in a seeded
+    ``FaultInjector`` before the drive starts (docs/RELIABILITY.md).
+
+    The router's device and featurize placement are the caller's: the
+    drive itself is host code over the router's ``route_batch``."""
+    clk = {"t": 0.0}
+    clock = lambda: clk["t"]  # noqa: E731 — the shared virtual time source
+    outcome_fn = outcome_fn or OutcomeSimulator(seed=seed)
+    if engine_factory is None:
+        engine_factory = lambda prof, c: SimEngine(  # noqa: E731
+            prof, outcome_fn, steps_per_query=steps_per_query,
+            concurrency=concurrency, clock=c)
+    pool = router.pool
+    engines = {pool[i].name: engine_factory(pool[i], clock)
+               for i in range(len(pool))}
+    for eng_name, faults in (scenario.faults or {}).items():
+        if eng_name in engines and faults:
+            engines[eng_name] = FaultInjector(engines[eng_name], faults,
+                                              clock=clock)
+    cache = (GreenCache(mode=cache_mode,
+                        semantic_threshold=semantic_threshold, clock=clock)
+             if cache_mode != "off" else None)
+    governor = None
+    if budget_wh_per_query is not None:
+        governor = EnergyBudgetGovernor(
+            budget_wh_per_query * scenario.n_queries,
+            horizon_queries=scenario.n_queries,
+            carbon_fn=scenario.carbon_fn, **(governor_kwargs or {}))
+    telemetry = Telemetry(governor=governor, clock=clock)
+    server = PoolServer(
+        router, engines, telemetry=telemetry, cache=cache,
+        cost_model=EnergyCostModel() if use_cost_model else None,
+        admission_planner=admission_planner,
+        hedge_after_steps=hedge_after_steps,
+        # virtual idle-jumps can cross any wall-style timeout in one tick;
+        # engine failures still surface through the _failed flag
+        heartbeat_timeout_s=1e18,
+        clock=clock, **(server_kwargs or {}))
+    queries, arrivals = scenario.queries, scenario.arrivals_s
+    events = sorted(scenario.events, key=lambda e: e.t_s)
+    arr_i = ev_i = steps = 0
+    last_modeled = 0.0
+    trajectory: List[dict] = []
+
+    def sample() -> dict:
+        return {"t_s": round(clk["t"], 6),
+                "completed": len(server.responses),
+                "failed": len(server.failed),
+                "joules": round(sum(e.cumulative_joules()
+                                    for e in server.engines.values()), 6),
+                "inflight": len(server.inflight),
+                "parked": len(server.arrivals),
+                "deferred": int(server.stats["deferred"]),
+                "cache_hits": int(server.stats["cache_hits"]),
+                "retries": int(server.stats["retries"]),
+                "timeouts": int(server.stats["timeouts"]),
+                "breaker_opens": int(server.stats["breaker_opens"]),
+                # cumulative routing decisions per arm — the chaos bench
+                # differences consecutive samples to show the breaker
+                # shifting share off a faulty engine mid-run
+                "selections": {n: int(c) for n, c
+                               in sorted(server.dispatch_counts.items())},
+                "lam": float(router.config.lam)}
+
+    while arr_i < len(queries) or server.inflight or server.arrivals:
+        if steps >= max_steps:
+            raise LivelockError(
+                f"scenario {scenario.name!r}: {len(server.inflight)} in "
+                f"flight, {len(server.arrivals)} parked, "
+                f"{len(queries) - arr_i} future arrivals after "
+                f"{max_steps} steps\n" + server.drain_snapshot())
+        # pool events fire once the virtual clock passes them
+        while ev_i < len(events) and events[ev_i].t_s <= clk["t"]:
+            ev = events[ev_i]
+            ev_i += 1
+            if ev.kind == "kill":
+                server.engines[ev.model].inject_failure()
+            elif ev.kind == "add":
+                row = next(r for r in PAPER_POOL if r[0] == ev.model)
+                prof = make_profile(*row)
+                server.add_engine(prof, engine_factory(prof, clock))
+            else:
+                raise ValueError(f"unknown PoolEvent kind {ev.kind!r}")
+        # idle: jump straight to the next arrival (or pending event)
+        if (arr_i < len(queries) and not server.inflight
+                and not server.arrivals and clk["t"] < arrivals[arr_i]):
+            jump_to = arrivals[arr_i]
+            if ev_i < len(events):
+                jump_to = min(jump_to, events[ev_i].t_s)
+            clk["t"] = jump_to
+            continue
+        while arr_i < len(queries) and arrivals[arr_i] <= clk["t"]:
+            server.enqueue(queries[arr_i])
+            arr_i += 1
+        server.step()
+        steps += 1
+        now_modeled = max((e.modeled_time_s()
+                           for e in server.engines.values()), default=0.0)
+        clk["t"] += max(now_modeled - last_modeled, 1e-7)
+        last_modeled = now_modeled
+        if steps % trace_every == 0:
+            trajectory.append(sample())
+    trajectory.append(sample())
+    accs = [getattr(r, "accuracy", 0.0) for r in server.responses.values()]
+    wh = sum(r.energy_wh for r in server.responses.values())
+    avoided = sum(e.cumulative_joules_avoided()
+                  for e in server.engines.values()) / 3600.0
+    return ClosedLoopResult(
+        name=name or scenario.name,
+        mean_accuracy=float(np.mean(accs)) if accs else 0.0,
+        total_energy_wh=float(wh), completed=len(server.responses),
+        n_queries=scenario.n_queries, span_s=float(clk["t"]),
+        stats=dict(server.stats), trajectory=trajectory,
+        avoided_wh=float(avoided), server=server, telemetry=telemetry,
+        failed=len(server.failed))

@@ -9,8 +9,8 @@ continuous-batching scheduler; then drives a synthetic query stream
 through it with hedging and fault injection available as flags.  The
 flags and defaults are the JAX package's ``repro/launch/serve.py``, plus
 ``--device`` (the card unless ``cpu`` is asked for).  ``--disaggregate``
-is accepted and refused by ``PoolServer``: the port has no decode twins
-yet.
+gives each member a decode twin (role-specialized prefill/decode with
+KV migration at the phase boundary; recurrent layouts stay unified).
 
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.serve --queries 60 \\
@@ -51,9 +51,11 @@ def build_real_pool(arch_ids: List[str], max_batch: int = 4,
     ``prefill_chunk`` (prompt tokens per engine prefill tick, default 8)
     cuts TTFT roughly by the chunk factor on attention-cached layouts;
     recurrent/ring layouts clamp to 1.  With ``disaggregate`` each member
-    also gets a decode twin sharing the primary's params, as in the JAX
-    package; ``PoolServer`` refuses twins until the port's disaggregation
-    slice.  Returns ``(engines, pool, decode_engines)``."""
+    also gets a decode twin (``role="decode"``) sharing the primary's
+    params; the scheduler runs the pair role-specialized with KV
+    migration at the phase boundary.  Returns ``(engines, pool,
+    decode_engines)`` — the twin dict is empty when disaggregation is
+    off, and layouts that can't migrate KV stay unified when attached."""
     engines: Dict[str, ModelEngine] = {}
     decode_engines: Dict[str, ModelEngine] = {}
     for i, arch in enumerate(arch_ids):
@@ -67,7 +69,7 @@ def build_real_pool(arch_ids: List[str], max_batch: int = 4,
             decode_engines[arch] = ModelEngine(
                 arch, cfg, max_batch=max_batch, max_len=max_len,
                 params=eng.params, detokenize=tok.decode,
-                prefill_chunk=prefill_chunk, device=device)
+                prefill_chunk=prefill_chunk, role="decode", device=device)
     pool = ModelPool([e.profile for e in engines.values()])
     return engines, pool, decode_engines
 
@@ -132,8 +134,9 @@ def build_parser() -> argparse.ArgumentParser:
                          "remaining budget this tick (needs --cost-model "
                          "on and --energy-budget-wh)")
     ap.add_argument("--disaggregate", action="store_true",
-                    help="role-specialized serving (decode twins); the "
-                         "port refuses it until its disaggregation slice")
+                    help="role-specialized serving: each member gets a "
+                         "decode twin sharing its weights, the prompt KV "
+                         "migrating at the phase boundary")
     ap.add_argument("--device", default=None,
                     help="where the models and the router run (default: "
                          "the CUDA card; 'cpu' runs the plain versions)")
@@ -187,7 +190,8 @@ def serve(args: argparse.Namespace, engines: Dict[str, ModelEngine],
     counts = router.selection_counts()
     print(f"[serve] {len(server.responses)}/{len(queries)} queries in "
           f"{wall:.1f}s; restarts={server.stats['restarts']} "
-          f"hedges={server.stats['hedges']}")
+          f"hedges={server.stats['hedges']} "
+          f"migrations={server.stats['migrations']}")
     for name, c in zip(pool.names, counts):
         print(f"  {name:20s} selected {int(c):4d}×")
     total_wh = sum(r.energy_wh for r in server.responses.values())

@@ -42,9 +42,17 @@ layer): a dense or MoE engine splices the longest cached prompt prefix
 into a newly admitted slot (host → card) and prefills only the suffix;
 a finished prompt's whole blocks are captured (card → host) into the
 engine's ``PrefixCache``.  The avoided prefill is credited on the
-engine's ledger (``cumulative_joules_avoided``), never un-spent.  The
-engines are unified: the disaggregated prefill/decode roles wait for the
-port's disaggregation slice.
+engine's ledger (``cumulative_joules_avoided``), never un-spent.
+
+Disaggregated prefill/decode (``set_role``): a ``prefill`` engine hands a
+request off at the phase boundary — its prompt KV copied out of the slot
+(a copy on the engine's device, not a view: the slot is freed and
+rewritten on the next tick), its prefill Wh stamped — into an outbox the
+scheduler drains into the ``decode`` twin, which splices the KV into a
+slot with the prefix splice's transport and decodes from there.  The
+phase-boundary transfer is charged as ``kv_migration_cost`` on the
+twin's prefill ledger.  The same full-depth positional-KV gate as
+chunked prefill applies: recurrent and ring layouts stay ``unified``.
 """
 from __future__ import annotations
 
@@ -59,8 +67,8 @@ from repro_torch.cache.prefix import PrefixCache
 from repro_torch.core.energy import (CostModelParams, EnergyMonitor,
                                      JOULES_PER_WH, chunk_rider_cost,
                                      decode_step_cost, energy_joules,
-                                     prefill_chunk_cost, prefill_cost,
-                                     roofline)
+                                     kv_migration_cost, prefill_chunk_cost,
+                                     prefill_cost, roofline)
 from repro_torch.core.types import ModelProfile
 from repro_torch.device import resolve_device
 from repro_torch.models import api
@@ -77,6 +85,7 @@ class BaseEngine:
 
     name: str
     profile: ModelProfile
+    role: str = "unified"    # "prefill" | "decode" | "unified"
 
     def submit(self, req: Request) -> None:
         """Enqueue one routed request (admitted into a slot on a later step)."""
@@ -101,6 +110,25 @@ class BaseEngine:
         """Slots the engine could admit into right now (continuous-batching
         admission signal; 0 = saturated)."""
         return max(0, 1 - self.pending)
+
+    # -- prefill/decode disaggregation hooks ----------------------------------
+
+    def set_role(self, role: str) -> None:
+        """Specialize the engine: a ``prefill`` engine hands requests off at
+        the phase boundary instead of decoding them; a ``decode`` engine
+        accepts those migrations.  Engines that can't export/import KV
+        (no full-depth positional cache) silently stay ``unified``."""
+
+    def drain_migrations(self) -> List[Request]:
+        """Requests that finished prefill this tick and carry a KV payload;
+        the scheduler moves them to the decode twin.  Draining empties the
+        outbox.  Always empty for unified/decode roles."""
+        return []
+
+    def submit_migrated(self, req: Request) -> None:
+        """Enqueue a migrated request (``req.kv_payload`` holds its prompt
+        KV); spliced into a slot on a later step, then decoded."""
+        raise NotImplementedError(f"{self.name} cannot accept migrations")
 
     def modeled_time_s(self) -> float:
         """Cumulative modeled seconds of engine compute (per-tick roofline
@@ -152,6 +180,7 @@ class ModelEngine(BaseEngine):
 
     ``prefill_chunk`` sets how many prompt tokens each prefilling slot
     consumes per tick (1 = token-wise path; the launcher default is 8).
+    ``role`` is the engine's serving phase (``set_role``).
     ``device`` is where the model, the cache and every tick run (the card
     unless the caller passes ``device="cpu"``).  The cache is updated in
     place each tick (the JAX package donates it to its jitted steps).
@@ -167,7 +196,8 @@ class ModelEngine(BaseEngine):
     def __init__(self, name: str, cfg: ModelConfig, seed: int = 0,
                  max_batch: int = 4, max_len: int = 256,
                  params=None, detokenize: Optional[Callable] = None,
-                 prefill_chunk: int = 1, device=None):
+                 prefill_chunk: int = 1, role: str = "unified",
+                 device=None):
         self.name = name
         self.cfg = dataclasses.replace(cfg, kv_update="where")
         self.device = resolve_device(device)
@@ -205,11 +235,30 @@ class ModelEngine(BaseEngine):
         self.prefix_cache: Optional[PrefixCache] = None
         self._avoided_joules = 0.0
         self._prefix_hits = 0
+        # prefill/decode disaggregation: a "prefill" engine parks
+        # phase-boundary requests here for the scheduler to move to the
+        # decode twin
+        self.role = "unified"
+        self._migration_outbox: List[Request] = []
+        self._migration_joules = 0.0
+        self.set_role(role)
 
     def _full_depth_kv(self) -> bool:
         """The layout has a full-depth positional KV cache, which is what
         a chunk slab at an offset and a spliced prefix need."""
         return api.supports_chunked_prefill(self.cfg) and "k" in self.cache
+
+    def set_role(self, role: str) -> None:
+        """Pin the engine to one serving phase.  The same full-depth
+        positional-KV gate as chunked prefill applies: the migration
+        copies the slot's prompt KV out and splices it into the twin's
+        slot, so recurrent (rwkv/mamba) and ring-buffer layouts silently
+        fall back to ``unified`` and keep both phases local."""
+        if role not in ("prefill", "decode", "unified"):
+            raise ValueError(f"unknown engine role {role!r}")
+        if role != "unified" and not self._full_depth_kv():
+            role = "unified"
+        self.role = role
 
     def set_prefill_chunk(self, n: int) -> None:
         """Set the prompt tokens consumed per prefill tick.  Clamped to 1
@@ -276,7 +325,8 @@ class ModelEngine(BaseEngine):
 
     @property
     def pending(self) -> int:
-        return len(self.queue) + sum(s is not None for s in self.slots)
+        return (len(self.queue) + len(self._migration_outbox)
+                + sum(s is not None for s in self.slots))
 
     @property
     def free_capacity(self) -> int:
@@ -289,6 +339,17 @@ class ModelEngine(BaseEngine):
         req.model_name = self.name
         self.queue.append(req)
 
+    def submit_migrated(self, req: Request) -> None:
+        """Accept a phase-boundary migration from the prefill twin.  The
+        request keeps its prompt cursor (fully fed), its first generated
+        token, and its stamped ``prefill_wh``; ``_admit`` splices the KV
+        payload into a slot and decode continues from there."""
+        self.queue.append(req)
+
+    def drain_migrations(self) -> List[Request]:
+        out, self._migration_outbox = self._migration_outbox, []
+        return out
+
     def _admit(self) -> None:
         for i in range(self.max_batch):
             if self.slots[i] is None and self.queue:
@@ -300,10 +361,29 @@ class ModelEngine(BaseEngine):
                 # reset the slot's cache length so it starts fresh (only
                 # the length, as the reference: recurrent state carries over)
                 self.cache["length"][i] = 0
+                if req.kv_payload is not None:
+                    self._splice_migration(i, req)
+                    continue
                 req.state = RequestState.PREFILL
                 req.start_s = time.monotonic()
                 if self.prefix_cache is not None:
                     self._splice_prefix(i, req)
+
+    def _splice_migration(self, slot: int, req: Request) -> None:
+        """Land a migrated request: splice its carried prompt KV into the
+        slot (cache length = prompt length, exactly the state the prefill
+        twin left behind) and charge the migration transfer to the prefill
+        ledger — it is phase-boundary overhead, not decode work."""
+        k_blk, v_blk = req.kv_payload
+        self.cache = api.splice_prefix(self.cache, slot, k_blk, v_blk)
+        req.kv_payload = None
+        req.state = RequestState.DECODE
+        f, b = kv_migration_cost(self.cost_params, req.kv_migrated)
+        terms = roofline(f, b, 0.0, self.energy.chips)
+        joules = energy_joules(terms)
+        self._migration_joules += joules
+        self._phase_joules["prefill"] += joules
+        self._modeled_time_s += terms.t_step
 
     def _splice_prefix(self, slot: int, req: Request) -> None:
         """Reuse the longest cached KV prefix for a newly admitted prompt.
@@ -425,7 +505,10 @@ class ModelEngine(BaseEngine):
                        fed_prompt: List[int]) -> List[Response]:
         """Shared post-step bookkeeping: advance prompt cursors, record
         TTFT at the first generated token, append decode tokens, finish
-        on EOS / max_new_tokens / cache overflow."""
+        on EOS / max_new_tokens / cache overflow.  On a ``prefill``-role
+        engine, requests that survive the finish checks at the phase
+        boundary are handed to the migration outbox instead of decoding
+        locally."""
         finished: List[Response] = []
         now = time.monotonic()
         for i, req in enumerate(self.slots):
@@ -442,9 +525,11 @@ class ModelEngine(BaseEngine):
                     req.first_token_s = now
                     # the first generated token gets the same finish checks
                     # as any decode token — an EOS-first or 1-token-budget
-                    # request must not survive into decode
+                    # request must not survive into decode (or migrate)
                     if self._should_finish(i, req):
                         finished.append(self._finish(i))
+                    elif self.role == "prefill":
+                        self._emit_migration(i, req)
                 continue
             req.generated.append(int(next_tok[i]))
             if self._should_finish(i, req):
@@ -456,6 +541,45 @@ class ModelEngine(BaseEngine):
         full = len(req.generated) >= req.max_new_tokens
         overflow = int(self.cache["length"][slot]) >= self.max_len - 1
         return hit_eos or full or overflow
+
+    def _emit_migration(self, slot: int, req: Request) -> None:
+        """Phase boundary on a prefill-role engine: copy the prompt KV out
+        of the slot (a copy on the engine's device — the slot is freed
+        here and rewritten on the next tick, so a view would be
+        overwritten), stamp the metered prefill-phase Wh on the request,
+        and free the slot for the next arrival.  Prompts that overflowed
+        the slot cache have unwritten KV positions — nothing trustworthy
+        to ship — so they stay local and decode here (per-request unified
+        fallback)."""
+        n_p = len(req.prompt_tokens)
+        if n_p > self.max_len - 1:
+            return
+        k = self.cache["k"][:, slot, :n_p].clone()
+        v = self.cache["v"][:, slot, :n_p].clone()
+        req.kv_payload = (k, v)
+        req.kv_migrated = n_p
+        req.prefill_wh = self._prefill_phase_wh(req)
+        req.state = RequestState.MIGRATING
+        req.slot = -1
+        self._migration_outbox.append(req)
+        self.slots[slot] = None
+
+    def _prefill_phase_wh(self, req: Request) -> float:
+        """The prefill share of the per-query Wh of record, stamped at
+        migration time by the engine that actually did the work.  Mirrors
+        ``_query_wh``'s split: cold prompts cost ``measure_query``'s
+        prefill term, spliced prompts only their uncached suffix.  The
+        spend is charged to this engine's monitor now — a later decode-twin
+        failure re-queues the request but never un-spends these joules."""
+        n_p = max(len(req.prompt_tokens), 1)
+        if req.prefix_reused > 0:
+            joules = self._prefill_joules(max(n_p - req.prefix_reused, 1),
+                                          kv_start=req.prefix_reused)
+        else:
+            f, b = prefill_cost(self.cost_params, n_p)
+            joules = energy_joules(roofline(f, b, 0.0, self.energy.chips))
+        self.energy.total_joules += joules
+        return joules / JOULES_PER_WH
 
     def _meter_step(self, fed) -> None:
         """Accumulate this tick's modeled energy from the analytic cost
@@ -511,8 +635,11 @@ class ModelEngine(BaseEngine):
         req.state = RequestState.DONE
         req.finish_s = time.monotonic()
         out = [t for t in req.generated if t != req.eos_id]
-        pre_wh, dec_wh = self._query_wh(len(req.prompt_tokens),
-                                        req.prefix_reused, len(out))
+        if req.kv_migrated and req.prefill_wh > 0:
+            pre_wh, dec_wh = self._migrated_query_wh(req, len(out))
+        else:
+            pre_wh, dec_wh = self._query_wh(len(req.prompt_tokens),
+                                            req.prefix_reused, len(out))
         ttft_ms = ((req.first_token_s - req.submit_s) * 1e3
                    if req.first_token_s else 0.0)
         return Response(
@@ -546,6 +673,25 @@ class ModelEngine(BaseEngine):
         self.energy.n_queries += 1
         return pre_j / JOULES_PER_WH, dec_j / JOULES_PER_WH
 
+    def _migrated_query_wh(self, req: Request, n_out: int) -> tuple:
+        """Per-query (prefill Wh, decode Wh) of record for a request that
+        prefilled elsewhere: the prefill twin's stamped ``prefill_wh`` +
+        the phase-boundary KV transfer on the prefill side, this engine's
+        decode work at full context depth on the decode side.  The prefill
+        term was already charged to the twin's monitor at migration
+        time."""
+        n_prompt = len(req.prompt_tokens)
+        mid_kv = n_prompt + max(n_out, 1) // 2
+        f, b = decode_step_cost(self.cost_params, mid_kv)
+        dec_j = max(n_out, 0) * energy_joules(
+            roofline(f, b, 0.0, self.energy.chips))
+        f, b = kv_migration_cost(self.cost_params, req.kv_migrated)
+        mig_j = energy_joules(roofline(f, b, 0.0, self.energy.chips))
+        self.energy.total_joules += dec_j + mig_j
+        self.energy.n_queries += 1
+        return (req.prefill_wh + mig_j / JOULES_PER_WH,
+                dec_j / JOULES_PER_WH)
+
     def _capture_prefix(self, slot: int, req: Request) -> None:
         """Register a finished prompt's KV with the prefix cache.  The
         prompt region [0, n_prompt) of the slot cache is still intact at
@@ -570,7 +716,7 @@ class ModelEngine(BaseEngine):
         # resurrected: resetting one to QUEUED would re-enter a terminal
         # uid into the scheduler's bookkeeping
         inflight = [r for r in ([r for r in self.slots if r is not None]
-                                + self.queue)
+                                + self.queue + self._migration_outbox)
                     if not r.defunct]
         for r in inflight:
             r.state = RequestState.QUEUED
@@ -579,8 +725,14 @@ class ModelEngine(BaseEngine):
             r.n_prompt_fed = 0
             r.prefix_reused = 0          # re-splices on re-admission
             r.first_token_s = 0.0
+            # drop any in-transit KV: it is re-prefilled from scratch, and
+            # the twin's already-charged joules stay spent (never refunded)
+            r.kv_payload = None
+            r.kv_migrated = 0
+            r.prefill_wh = 0.0
         self.slots = [None] * self.max_batch
         self.queue = []
+        self._migration_outbox = []
         self.cache = api.init_cache(self.cfg, self.max_batch, self.max_len,
                                     self.device)
         self._failed = False

@@ -7,9 +7,9 @@ power trace, the event log, and — when governed — the
 metric handles, so telemetry stays well under the 5 % step-overhead
 budget the JAX package's ``benchmarks/bench_telemetry.py`` asserts.  The
 reliability and migration hooks (``on_attempt_failure`` … ``on_breaker``,
-``on_migration``) are kept with their pre-bound counters, so an export
-lists the same series as the JAX package's; the port's ``PoolServer``
-calls them once it has retries, breakers and decode twins.
+``on_migration``) count retries, timeouts, failures, SLO violations,
+breaker transitions and KV migrations, with their counters pre-bound so
+an export lists the same series as the JAX package's.
 
 Metric conventions (exported names):
 

@@ -56,6 +56,7 @@ from repro_torch.data import tokenizer as tok
 from repro_torch.models import api
 from repro_torch.models.convert import params_from_jax
 from repro_torch.serving import ModelEngine, PoolServer, Request, SimEngine
+from test_torch_costmodel import one_torch_thread  # noqa: F401
 
 pytestmark = [pytest.mark.port, pytest.mark.cache]
 

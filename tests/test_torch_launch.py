@@ -6,15 +6,30 @@ draws them), with its defaults (prefix cache, cost model on, telemetry
 without a governor) and with a budget, the admission planner and a
 metrics dump: every query answered, every forecast reconciled, the
 telemetry's Wh equal to the responses', and the dump read back by both
-packages' ``load_jsonl``.  ``--disaggregate`` is refused, not ignored."""
+packages' ``load_jsonl``.  ``--disaggregate`` on the same pool in fp32
+(the JAX weights carried over, the port's energy constants set to the
+JAX package's) answers as the JAX launcher does, with its migrations,
+each twin in the decode role; rwkv6 refuses the prefill role."""
+import functools
+import sys
+
 import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax
+import numpy as np
+
+from repro.configs import get_config as jax_get_config
+from repro.launch import serve as jax_serve
 from repro.telemetry import load_jsonl as jax_load_jsonl
+from repro_torch.configs import get_config
 from repro_torch.launch import serve
+from repro_torch.models.convert import params_from_jax
+from repro_torch.serving import ModelEngine
 from repro_torch.telemetry import load_jsonl
 from test_torch_costmodel import one_torch_thread  # noqa: F401
+from test_torch_serving import equal_energy_constants  # noqa: F401
 
 pytestmark = pytest.mark.port
 
@@ -77,8 +92,71 @@ def test_launcher_governed_with_planner_and_dump(tmp_path, capsys):
 
 
 def test_launcher_refuses_disaggregation():
-    with pytest.raises(NotImplementedError, match="disaggregation"):
-        serve.main(POOL + ["--disaggregate"])
+    """A layout without a full-depth positional KV cache refuses the
+    prefill role: with ``--disaggregate`` rwkv6 keeps serving both phases
+    on one engine (its twin is built, never registered) while granite
+    runs as a prefill engine and a decode twin."""
+    run = serve.main(["--device", "cpu", "--pool", "granite-3-8b",
+                      "rwkv6-1.6b", "--queries", "6", "--disaggregate"])
+    server = run["server"]
+    assert server.engines["rwkv6-1.6b"].role == "unified"
+    assert server.engines["granite-3-8b"].role == "prefill"
+    assert list(server.decode_engines) == ["granite-3-8b"]
+    assert server.decode_engines["granite-3-8b"].role == "decode"
+    assert sorted(server.responses) == sorted(q.uid for q in run["queries"])
+
+
+F32 = dict(dtype="float32", param_dtype="float32")
+
+
+def test_launcher_disaggregated_matches_jax(monkeypatch, capsys,
+                                            equal_energy_constants):
+    """``--disaggregate`` over granite-3-8b and qwen2-moe-a2.7b: the JAX
+    launcher's ``main`` and the port's on the same fp32 weights answer
+    every query with the same tokens on the same arms and the same
+    migrations; every twin is in the decode role."""
+    made = []
+
+    class Recording(jax_serve.PoolServer):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            made.append(self)
+
+    monkeypatch.setattr(jax_serve, "PoolServer", Recording)
+    monkeypatch.setattr(jax_serve, "get_config",
+                        functools.partial(jax_get_config, **F32))
+    argv = ["--pool", "granite-3-8b", "qwen2-moe-a2.7b", "--queries", "6",
+            "--disaggregate"]
+    monkeypatch.setattr(sys, "argv", ["serve"] + argv)
+    jax_serve.main()
+    want = made[0]
+    weights = {name: eng.params for name, eng in want.engines.items()}
+
+    def engine(arch, cfg, seed=0, params=None, **kw):
+        if params is None:
+            params = params_from_jax(jax.tree.map(np.asarray, weights[arch]),
+                                     cfg, device="cpu")
+        return ModelEngine(arch, cfg, seed, params=params, **kw)
+
+    monkeypatch.setattr(serve, "ModelEngine", engine)
+    monkeypatch.setattr(serve, "get_config",
+                        functools.partial(get_config, **F32))
+    run = serve.main(["--device", "cpu"] + argv)
+    got = run["server"]
+    assert set(got.decode_engines) == set(want.decode_engines) == {
+        "granite-3-8b", "qwen2-moe-a2.7b"}
+    for name, twin in got.decode_engines.items():
+        assert twin.role == "decode" and got.engines[name].role == "prefill"
+        assert twin.params is got.engines[name].params
+    assert sorted(got.responses) == sorted(want.responses) == sorted(
+        q.uid for q in run["queries"])
+    for uid, r in want.responses.items():
+        assert got.responses[uid].model_name == r.model_name
+        assert got.responses[uid].tokens == list(r.tokens)
+        assert got.responses[uid].kv_migrated == r.kv_migrated
+    assert got.stats == want.stats
+    assert got.stats["migrations"] > 0
+    assert "migrations=" in capsys.readouterr().out
 
 
 def test_launcher_defaults_are_the_reference_launchers():

@@ -36,6 +36,7 @@ from repro_torch.data import routerbench as rb
 from repro_torch.serving import SimEngine
 from repro_torch.serving.request import Request, RequestState
 from repro_torch.telemetry import Telemetry
+from test_torch_costmodel import one_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.port
 

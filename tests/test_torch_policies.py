@@ -24,6 +24,7 @@ from repro_torch.benchmarks import baselines, common
 from repro_torch.core import bandits, prng
 from repro_torch.core.bandits import BanditPolicy
 from repro_torch.core.types import Feedback, RouterConfig
+from test_torch_costmodel import one_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.port
 

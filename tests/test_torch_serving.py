@@ -198,17 +198,30 @@ def test_pool_server_run_matches_jax(equal_energy_constants):
 
 
 def test_unported_serving_options_raise():
+    """The encoder-decoder layout and the fleet chaos variant wait for
+    later slices and raise; the reliability and disaggregation options
+    of ``PoolServer`` are taken."""
+    from repro_torch.benchmarks import chaos
+    from repro_torch.serving import BreakerConfig
     pcfg = get_config("granite-3-8b", **F32)
     with pytest.raises(NotImplementedError):
         lm.init_cache(dataclasses.replace(pcfg, layout="encdec"), 1, 128,
                       device="cpu")
+    with pytest.raises(NotImplementedError, match="fleet"):
+        chaos.main(fleet=True, artifact=None, device="cpu")
     eng = ModelEngine("g", pcfg, max_len=32, device="cpu")
+    twin = ModelEngine("g", pcfg, max_len=32, params=eng.params,
+                       role="decode", device="cpu")
     router = GreenServRouter(RouterConfig(), ModelPool([eng.profile]),
                              device="cpu")
-    for kw in (dict(max_retries=1), dict(deadline_s=1.0),
-               dict(decode_engines={"g": eng}), dict(breaker_config=object())):
-        with pytest.raises(NotImplementedError):
-            PoolServer(router, {"g": eng}, **kw)
+    server = PoolServer(router, {"g": eng}, max_retries=1, deadline_s=1.0,
+                        decode_engines={"g": twin},
+                        breaker_config=BreakerConfig())
+    assert (server.max_retries, server.deadline_s) == (1, 1.0)
+    assert server.decode_engines == {"g": twin} and eng.role == "prefill"
+    assert set(server.breakers) == {"g", "g#decode"}
+    with pytest.raises(ValueError):
+        eng.set_role("encoder")
 
 
 def test_livelock_is_raised_with_a_snapshot():

@@ -48,7 +48,11 @@ Phases, in order; any failure raises and the script exits non-zero:
      mask and, where the mask is plain causal, with ``is_causal``); the
      gating kernel also timed at its launcher, at the wrapper and on the
      card (the profiler's kernel time), beside ``torch.topk`` + softmax,
-     and decode attention on the card too;
+     and decode attention on the card too; the families phase's shapes:
+     flash at whisper-medium's encoder (non-causal, 16/16 heads of 64,
+     S = 1500) and decoder, llava-next-34b's prefill and gemma3-27b's
+     local and global layers, decode attention at gemma3-27b's global
+     layers, gating at grok's E = 8, k = 2;
   4. router: one 64-query stream through twin routers on the card, device
      featurize vs host featurize — arms, labels, clusters and bins must be
      identical;
@@ -136,7 +140,7 @@ Phases, in order; any failure raises and the script exits non-zero:
      its top-two logit gaps and held to a rounding tie or to the path
      that explains it (a unified decode token riding a chunk tick, a
      MoE tick shared with another row); (c2) the disaggregation bench's
-     MMPP workload (70 users, its timescales scaled by the modeled decode
+     MMPP workload (30 users, its timescales scaled by the modeled decode
      tick, full width over the bench's smoke model) monolithic (4 slots)
      against the pair (2 + 2): every query answered, migrations only
      disaggregated, prefill and decode role Wh; TTFT p50/p95/p99 and
@@ -185,6 +189,32 @@ Phases, in order; any failure raises and the script exits non-zero:
      4 requests token-wise;
   9. engine cross-check: two full-width granite layers, bf16 against fp32
      on the same weights.
+  10. the other families and the paper's remaining experiments, after
+     every earlier phase's models are freed: (a) whisper-medium at full
+     depth and width (bf16, ``use_pallas=True``): ``api.prefill`` at B=2
+     with 1,500 stub frames and S=448 (24 flash launches, the decoder's
+     self-attention, all on the wgmma route; the encoder's and the whole
+     prefill's ms apart; at 2 layers ``use_pallas`` True vs False on zero
+     frames, the serving engine's stub frontend, and printed on N(0, 1)
+     frames beside the plain path's own gap for a one-bf16-unit move of
+     the frames), served beside a full-width granite-3-8b through the
+     launcher's ``serve`` at its defaults (every query answered, whisper
+     among the arms), and a prefill engine with its decode twin at
+     max_batch 1 against a unified engine (identical tokens, each
+     migrated K/V bit-equal); (b) gemma3-27b uncut: ``api.prefill`` at
+     B=1 S=8192 (62 flash launches), lockstep decode at B=4 over a
+     32768-deep cache (10 decode-attention launches a step) and the
+     gemma3 phase's checks; llava-next-34b at 16 of its 60 layers,
+     ``api.prefill`` with its 576 stub patch embeddings before 1,024
+     text tokens; grok-1-314b at 2 of its 64 layers, ``api.prefill`` at
+     B=2 S=2048 (the gating kernel at E=8, k=2) and a 4-request engine
+     (a gating launch a layer a tick); (c) the paper benches through the
+     port's router on the card: ``lambda_sweep`` and ``features`` at
+     per_task 25 with two seeds, ``features --perf --smoke`` (parity),
+     ``model_addition``, ``overhead`` and ``prefill`` at their defaults,
+     ``energy_model --smoke`` (its MAE gate) at 24 queries a cell, each
+     table printed and the router kernels' launches held to each
+     bench's routing calls.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a result when no
@@ -305,6 +335,10 @@ MOE_ARCH = "qwen2-moe-a2.7b"
 RWKV_ARCH = "rwkv6-1.6b"
 HYBRID_ARCH = "zamba2-7b"
 GEMMA_ARCH = "gemma3-12b"
+WHISPER_ARCH = "whisper-medium"
+LLAVA_ARCH = "llava-next-34b"
+GROK_ARCH = "grok-1-314b"
+GEMMA27_ARCH = "gemma3-27b"
 # the serving launcher's default pool, in its order, and danube: arms that
 # are untried tie, ties go to the lowest index, and an arm late in the
 # pool may get no query from an 80-query stream (rwkv6 got none as the
@@ -353,6 +387,21 @@ FLASH_CASES = (
      torch.float32),
     (GEMMA_ARCH + " global fp32", 1, 8192, 8192, 16, 8, 256, 8192, True,
      torch.float32),
+    # the families phase: whisper-medium's encoder shape on the wgmma
+    # route, non-causal, MHA at hd 64 and S = 1500 (ragged against both
+    # tiles; the model's encoder attends in plain code, as the JAX
+    # package's), its decoder's causal self-attention at 448 tokens,
+    # llava's 576 stub positions + 1024 text tokens at 64 (padded) / 8
+    # heads, and gemma3-27b's local and global layers at hd 128
+    (WHISPER_ARCH + " encoder", 1, 1500, 1500, 16, 16, 64, 1500, False,
+     torch.bfloat16),
+    (WHISPER_ARCH + " decoder", 2, 448, 448, 16, 16, 64, 448, True,
+     torch.bfloat16),
+    (LLAVA_ARCH, 1, 1600, 1600, 64, 8, 128, 1600, True, torch.bfloat16),
+    (GEMMA27_ARCH + " local", 1, 8192, 8192, 32, 16, 128, 1024, True,
+     torch.bfloat16),
+    (GEMMA27_ARCH + " global", 1, 8192, 8192, 32, 16, 128, 8192, True,
+     torch.bfloat16),
 )
 # decode attention: gemma3's global layers in lockstep decode (the main
 # path's shape: B=4 at cache_len 32705 of 32768, full window), the same in
@@ -376,6 +425,8 @@ DECODE_CASES = (
     ("ragged S", 2, 5000, 8, 2, 128, 4999, 5000, torch.float32),
     (GEMMA_ARCH + " ring", 4, 1024, 16, 8, 256, 1024, 1024, torch.bfloat16),
     ("ragged window", 4, 32768, 16, 8, 256, 16389, 8195, torch.bfloat16),
+    # gemma3-27b's global layers in the families phase's lockstep decode
+    (GEMMA27_ARCH, 4, 32768, 32, 16, 128, 32705, 32768, torch.bfloat16),
 )
 # fp32 cases at tests/test_kernels.py's 2e-5 (atol and rtol); bf16 cases at
 # one bf16 unit, as flash (FLASH_BF16_REL): test_kernels.py's 3e-2 is about
@@ -403,6 +454,19 @@ GEMMA_FEED_MAX_TOL = {"bf16": 0.1, "fp32": 1e-3}
 GEMMA_PROFILE_STEPS = 4         # lockstep steps profiled after the main run
 GEMMA_REQUESTS = (4, 32, 16)
 GEMMA_ENGINE_MAX_LEN = 2048
+# the families phase: whisper-medium's one-shot prefill (batch, decoder
+# tokens: whisper's own decoder length; 1,500 stub frames a row);
+# llava-next-34b cut to 16 of its 60 layers (64.1 GiB in full) and its
+# prefill (batch, text tokens after 576 stub patches); grok-1-314b cut to
+# 2 of its 64 layers (9.2 GiB a layer in bf16), its prefill and engine
+# (requests, prompt, new tokens); gemma3-27b uncut, at GEMMA_PREFILL and
+# GEMMA_DECODE; the paper benches' sweeps at per_task 25 (T = 125; their
+# default is 200) and two seeds, energy_model at 24 queries a cell (its
+# --smoke default 48), the rest at their defaults: the phase's time
+WHISPER_PREFILL = (2, 448)
+LLAVA_LAYERS, LLAVA_PREFILL = 16, (1, 1024)
+GROK_LAYERS, GROK_PREFILL, GROK_REQUESTS = 2, (2, 2048), (4, 32, 16)
+BENCH_SWEEP_PER_TASK, BENCH_RUNS, BENCH_ENERGY_QUERIES = 25, 2, 24
 # the paper phase (the paper's closed loop on the 16-model pool, §6):
 PAPER_PER_TASK = 500           # T = 2,500, the paper's stream (§6.1.2)
 PAPER_TWIN_PER_TASK = 150      # T = 750: device vs host featurize
@@ -421,6 +485,8 @@ CHOL_UPDATES = 400             # seeded posterior updates before comparing
 CHOL_TOL = 2e-4                # tests/test_bandits.py's tolerance
 CHOL_DECISIONS = 200           # decisions timed per solve mode
 GATING_T = (4, 32, 4096)       # decode tick, chunk tick (4 x 8), a prefill
+GROK_GATING_T = (4, 4096)      # grok's E = 8, k = 2: its engine's decode
+                               # tick and its prefill (B = 2, S = 2048)
 CACHE_ARCHS = ("granite-3-8b", MOE_ARCH, "h2o-danube-3-4b")  # rwkv6 out
 CACHE_WARM_ARCHS = ("granite-3-8b", MOE_ARCH)
 CACHE_QUERIES = 60             # the cache workload: 60 queries, seed 0
@@ -462,7 +528,8 @@ DISAGG_ARCHS = ("granite-3-8b", MOE_ARCH)
 DISAGG_QUERIES, DISAGG_SEED = 6, 3
 DISAGG_BATCH = 2
 DISAGG_C1_BATCHES = (1, DISAGG_BATCH)
-DISAGG_USERS = 70              # the MMPP workload's users (both runs)
+DISAGG_USERS = 30              # the MMPP workload's users (both runs; cut
+                               # to 30 by the script's time limit)
 DISAGG_KILL_QUERIES = 8
 DISAGG_LAUNCHER_QUERIES = 12
 # WKV shapes: rwkv6's prefill (B, S, H), its dtypes (r, k, v bf16; logw, u
@@ -823,10 +890,11 @@ def gating_phase(dev) -> dict:
     from repro_torch.kernels.moe_gating.ref import topk_gating_ref
 
     rng = np.random.default_rng(13)
-    e, k = 60, 4
     rows, worst = [], 0.0
-    cases = [(t, False) for t in GATING_T] + [(GATING_T[-1], True)]
-    for t, tied in cases:
+    cases = ([(t, 60, 4, False) for t in GATING_T]
+             + [(GATING_T[-1], 60, 4, True)]
+             + [(t, 8, 2, False) for t in GROK_GATING_T])
+    for t, e, k, tied in cases:
         x = rng.standard_normal((t, e)).astype(np.float32)
         if tied:     # quantized: many exact ties, and whole rows equal
             x = np.round(x * 2) / 2 + 0.0
@@ -858,7 +926,8 @@ def gating_phase(dev) -> dict:
         plain_ms = cuda_ms(lambda: topk_gating_ref(logits, k))
         # bytes: the logits read once, weights and indices written once
         b_ms, b_by = bound(t * e * 4 + t * k * 8, 0)
-        rows.append(dict(t=t, tied=tied, err=err, ms=ms, device_ms=dev_ms,
+        rows.append(dict(t=t, e=e, k=k, tied=tied, err=err, ms=ms,
+                         device_ms=dev_ms,
                          plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by))
         on_card = "" if tied else f", device {ms_text(dev_ms)}"
         log("kernels", f"moe_gating T={t} E={e} k={k}{' tied' if tied else ''}"
@@ -1755,10 +1824,10 @@ def serving_phase(dev) -> dict:
     # their first token.  A decode slice follows them: each prompt is its
     # task's instruction line alone, which leaves room for the task's whole
     # max_new_tokens (96 for math, 128 for summaries), so the decode ticks
-    # at full width do real work.
+    # at full width do real work.  Ten of them: the script's time limit
     decode_slice = [dataclasses.replace(q, uid=q.uid + 10_000,
                                         text=q.text.split("\n", 1)[0])
-                    for q in stream_lib.make_stream(per_task=4, seed=5)]
+                    for q in stream_lib.make_stream(per_task=2, seed=5)]
     arrivals = queries + decode_slice
     torch.cuda.reset_peak_memory_stats(dev)
     # the profiler's first session pays its own start-up: pay it here,
@@ -3331,7 +3400,7 @@ def recurrent_prefill_check(dev, arch, model, cfg, batch) -> None:
 def expected_launches(cfg) -> dict:
     """Kernel launches one ``api.prefill`` of ``cfg`` must make."""
     want = dict.fromkeys(_ops_modules(), 0)
-    if cfg.layout in ("dense", "moe"):
+    if cfg.layout in ("dense", "moe", "encdec"):     # encdec: the decoder
         want["flash_attention"] = cfg.n_layers
     if cfg.layout == "moe":
         want["moe_gating"] = cfg.n_layers
@@ -3343,16 +3412,23 @@ def expected_launches(cfg) -> dict:
     return want
 
 
-def drive_prefill(dev, arch, model, cfg, b: int, s: int, rng) -> tuple:
+def drive_prefill(dev, arch, model, cfg, b: int, s: int, rng,
+                  frontend: str = "") -> tuple:
     """``api.prefill`` at (b, s) with the counts set to 0 just before and
     read just after (the launches must be ``expected_launches``, the
-    logits finite), then timed over two more calls.  Returns (launches,
-    the batch)."""
+    logits finite), then timed over two more calls.  ``frontend`` names a
+    stub frontend's batch entry ("frames", "frontend_embeddings"), given
+    ``cfg.n_frontend_tokens`` seeded N(0, 1) embeddings a row.  Returns
+    (launches, the batch)."""
     from repro_torch.data import tokenizer as tok
     from repro_torch.models import api
 
     batch = {"tokens": torch.from_numpy(
         rng.integers(3, tok.VOCAB_SIZE, (b, s)).astype(np.int32)).to(dev)}
+    if frontend:
+        batch[frontend] = torch.from_numpy(rng.standard_normal(
+            (b, cfg.n_frontend_tokens, cfg.d_model), np.float32)).to(
+                dev, cfg.torch_dtype())
     torch.cuda.synchronize()
     reset_launches()
     t = time.perf_counter()
@@ -3378,7 +3454,9 @@ def drive_prefill(dev, arch, model, cfg, b: int, s: int, rng) -> tuple:
         api.prefill(model, batch, cfg)
     torch.cuda.synchronize()
     sec = (time.perf_counter() - t) / reps
-    log("prefill", f"{arch} B={b} S={s}: launches "
+    front = (f" + {cfg.n_frontend_tokens} stub {frontend}" if frontend
+             else "")
+    log("prefill", f"{arch} B={b} S={s}{front}: launches "
         f"{ {k: v for k, v in launches.items() if v} }{route}; logits "
         f"{tuple(logits.shape)} finite; {sec * 1e3:.3f} ms per prefill "
         f"({b * s / sec:.1f} prompt tok/s; first call "
@@ -3551,12 +3629,12 @@ def lockstep_decode(dev, model, cfg) -> dict:
     want = dict.fromkeys(_ops_modules(), 0)
     want["decode_attention"] = n_global * steps
     if launches != want:
-        raise AssertionError(f"{GEMMA_ARCH} lockstep decode: launches "
+        raise AssertionError(f"{cfg.name} lockstep decode: launches "
                              f"{launches}, expected {want}")
     if (cache["length"].ndim != 0 or int(cache["length"]) != length + steps
             or tuple(logits.shape) != (b, 1, cfg.vocab_size)
             or not torch.isfinite(logits).all()):
-        raise AssertionError(f"{GEMMA_ARCH} lockstep decode: length "
+        raise AssertionError(f"{cfg.name} lockstep decode: length "
                              f"{cache['length']}, logits "
                              f"{tuple(logits.shape)} finite "
                              f"{bool(torch.isfinite(logits).all())}")
@@ -3564,7 +3642,8 @@ def lockstep_decode(dev, model, cfg) -> dict:
     mean = sum(rest) / len(rest)
     dev_ms, top = profile_steps(model, cfg, cache,
                                 tokens[:GEMMA_PROFILE_STEPS])
-    log("gemma3", f"lockstep decode B={b}, cache depth {depth} (rings "
+    log("gemma3", f"{cfg.name} lockstep decode B={b}, cache depth {depth} "
+        f"(rings "
         f"{kv_bytes['k_local'] + kv_bytes['v_local']} bytes for "
         f"{cache['k_local'].shape[0]} local layers of window "
         f"{cache['k_local'].shape[2]}, full-depth "
@@ -3577,7 +3656,7 @@ def lockstep_decode(dev, model, cfg) -> dict:
         f"launches {launches['decode_attention']} ({n_global} per step), "
         f"no other kernel; max_memory_allocated "
         f"{torch.cuda.max_memory_allocated(dev)} bytes")
-    log("profile", f"gemma3 lockstep decode, {GEMMA_PROFILE_STEPS} more "
+    log("profile", f"{cfg.name} lockstep decode, {GEMMA_PROFILE_STEPS} more "
         f"steps under torch.profiler: {dev_ms:.3f} ms of kernels per step, "
         f"card busy {dev_ms / mean:.4f} of the main run's mean step")
     for line in top:
@@ -3597,7 +3676,7 @@ def profile_steps(model, cfg, cache, tokens) -> tuple:
         for t in tokens:
             api.serve_step(model, t, cache, cfg)
         torch.cuda.synchronize()
-    return kernel_times(prof, len(tokens), "gemma3 lockstep decode")
+    return kernel_times(prof, len(tokens), f"{cfg.name} lockstep decode")
 
 
 def lockstep_pallas_gap(dev, model, cfg, cache) -> tuple:
@@ -3710,7 +3789,7 @@ def gemma3_checks(dev, model, cfg, cache) -> None:
                              ("fp32", m32, cut32, PREFILL_FP32_REL_TOL)):
         pallas, n_pallas = lockstep_pallas_gap(dev, m, c, cache)
         if n_pallas != 1:
-            raise AssertionError(f"{GEMMA_ARCH}, first {n} layers, {label}: "
+            raise AssertionError(f"{cfg.name}, first {n} layers, {label}: "
                                  f"{n_pallas} decode_attention launches in "
                                  f"one use_pallas step")
         log("gemma3", f"first {n} layers, {label}: use_pallas True vs False "
@@ -3726,13 +3805,13 @@ def gemma3_checks(dev, model, cfg, cache) -> None:
                                                        depth)
             # the one-shot forward of the feed: bf16 on the tensor cores,
             # fp32 on the scalar kernel
-            check_flash_route(f"{GEMMA_ARCH} {what} {index}, {label}",
+            check_flash_route(f"{cfg.name} {what} {index}, {label}",
                               "wgmma" if label == "bf16" else "scalar")
             kv_gap = view_cache_gap(lv, lc, fed, toks)
             del fed
             want = feed if what == "global layer" else 0
             if launches != want:
-                raise AssertionError(f"{GEMMA_ARCH} {what} {index}, {label}: "
+                raise AssertionError(f"{cfg.name} {what} {index}, {label}: "
                                      f"{launches} decode_attention launches "
                                      f"in a feed of {feed}, expected {want}")
             past = float(np.median(gaps[c.window:]))
@@ -3753,10 +3832,11 @@ def gemma3_checks(dev, model, cfg, cache) -> None:
                 if not gap <= lim:
                     fails.append(f"{label} {what} {index} {name} {gap:.7f} "
                                  f"> {lim}")
-    del m32
+    # the loop's last views hold the fp32 upcast too
+    del m32, cut32, m, c, lv, lc
     torch.cuda.empty_cache()
     if fails:
-        raise AssertionError(f"{GEMMA_ARCH} checks: {'; '.join(fails)}")
+        raise AssertionError(f"{cfg.name} checks: {'; '.join(fails)}")
     log("gemma3", f"first group: bf16 gaps within {PREFILL_REL_TOL}, fp32 "
         f"within {PREFILL_FP32_REL_TOL} of the logit range, largest feed "
         f"gaps within {GEMMA_FEED_MAX_TOL} (checked)")
@@ -3906,6 +3986,384 @@ def engine_crosscheck(dev) -> None:
             f"{mean_rel:.5f} of the mean |logit|")
 
 
+# ---------------------------------------------------------------------------
+# 10. the other families and the paper's remaining experiments: whisper,
+#     gemma3-27b, llava, grok at full width; the paper benches
+# ---------------------------------------------------------------------------
+
+
+def family_model(dev, arch: str, seed: int, **cut) -> tuple:
+    """(a full-width bf16 model of ``arch`` with random weights from
+    ``seed``, its ``use_pallas=True`` config cut by ``cut``), logged."""
+    from repro_torch.configs import for_mode, get_config
+    from repro_torch.data import tokenizer as tok
+    from repro_torch.models import api
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    full = get_config(arch)
+    cfg = for_mode(get_config(arch, vocab_size=tok.VOCAB_SIZE,
+                              max_seq_len=SERVE_MAX_LEN, use_pallas=True,
+                              **cut), "serve")
+    t = time.perf_counter()
+    model = api.init_params(cfg, seed=seed, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    weights = sum(p.numel() * p.element_size() for p in model.parameters())
+    enc = (f" + {cfg.n_encoder_layers} encoder layers"
+           if cfg.layout == "encdec" else "")
+    log("families", f"{arch}: {cfg.n_layers}/{full.n_layers} layers{enc}, "
+        f"d_model {cfg.d_model}, {cfg.compute_heads}/{cfg.n_kv_heads} heads "
+        f"of {cfg.head_dim}, d_ff {cfg.d_ff}"
+        + (f", {cfg.n_experts} experts top-{cfg.top_k}"
+           if cfg.layout == "moe" else "")
+        + f"; {n_params / 1e9:.3f} B params, {weights} bytes in bf16, built "
+        f"in {time.perf_counter() - t:.2f} s")
+    return model, cfg
+
+
+def wall_ms(fn, reps: int = 2) -> float:
+    """Host milliseconds a call of ``fn`` over ``reps`` calls ending in a
+    synchronize, after one call."""
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t) * 1e3 / reps
+
+
+def encdec_view(model, cfg, n: int) -> tuple:
+    """(a view of an encoder-decoder holding its first ``n`` encoder and
+    decoder layers, weights shared, and ``cfg`` cut to them)."""
+    view = copy.copy(model)
+    view._modules = dict(model._modules)
+    view.enc_layers = torch.nn.ModuleList(model.enc_layers[:n])
+    view.dec_layers = torch.nn.ModuleList(model.dec_layers[:n])
+    return view, dataclasses.replace(cfg, n_layers=n, n_encoder_layers=n)
+
+
+def whisper_pallas_check(model, cfg, batch) -> None:
+    """At the first ``PREFILL_CHECK_DEPTH`` encoder and decoder layers,
+    ``use_pallas`` True (the decoder's self-attention on the flash kernel)
+    against False, in bf16.  Checked on zero frames, the serving engine's
+    stub frontend: the encoder output and the cross K/V are then 0, so
+    cross-attention adds nothing, as in serving.  With N(0, 1) frames the
+    random cross-attention is nearly one-hot and chaotic (a bf16 rounding
+    of its query can move its weight to another frame), so that gap is
+    printed beside the yardstick of the same amplification: the plain
+    path's own gap when every frame moves by about one bf16 unit."""
+    from repro_torch.models import api
+
+    n = PREFILL_CHECK_DEPTH
+    view, vcfg = encdec_view(model, cfg, n)
+    plain = dataclasses.replace(vcfg, use_pallas=False)
+    frames = batch["frames"]
+    sign = torch.where(torch.rand(frames.shape, device=frames.device,
+                                  generator=torch.Generator(
+                                      frames.device).manual_seed(5)) < 0.5,
+                       -1.0, 1.0)
+    nudged = (frames.float() * (1 + 2.0 ** -8 * sign)).to(frames.dtype)
+    gaps = {}
+    for what, fr in (("zero frames", torch.zeros_like(frames)),
+                     ("N(0, 1) frames", frames)):
+        b = dict(batch, frames=fr)
+        gaps[what] = logit_gap(api.prefill(view, b, vcfg),
+                               api.prefill(view, b, plain))
+    base = api.prefill(view, batch, plain)
+    yardstick = logit_gap(api.prefill(view, dict(batch, frames=nudged),
+                                      plain), base)
+    log("families", f"{cfg.name}, first {n} layers, bf16, use_pallas True "
+        f"vs False: zero frames max |diff| {gaps['zero frames'][0]:.7f} of "
+        f"the logit range (mean {gaps['zero frames'][1]:.7f}), limit "
+        f"{PREFILL_REL_TOL}; N(0, 1) frames {gaps['N(0, 1) frames'][0]:.7f} "
+        f"(mean {gaps['N(0, 1) frames'][1]:.7f}), not checked, beside the "
+        f"plain path's own gap when the frames move by one bf16 unit: "
+        f"{yardstick[0]:.7f} (mean {yardstick[1]:.7f})")
+    if not gaps["zero frames"][0] <= PREFILL_REL_TOL:
+        raise AssertionError(f"{cfg.name}: use_pallas True vs False "
+                             f"{gaps['zero frames'][0]:.7f} > "
+                             f"{PREFILL_REL_TOL} on zero frames")
+
+
+def whisper_part(dev, tally) -> dict:
+    """whisper-medium at full depth and width: (a1) ``api.prefill`` at
+    ``WHISPER_PREFILL`` with 1,500 stub frames, the decoder's self-attention
+    on the flash kernel (one wgmma launch a decoder layer), the encoder's
+    and the whole prefill's ms apart, and ``whisper_pallas_check``; (a2)
+    served beside a full-width granite-3-8b through the launcher's
+    ``serve`` at its defaults; (a3) a prefill engine and its decode twin
+    at max_batch 1 against a unified engine (``c1_pair``).  Returns the
+    prefill's launches."""
+    from repro_torch.core.pool import ModelPool
+    from repro_torch.core.router import GreenServRouter
+    from repro_torch.core.types import RouterConfig
+    from repro_torch.data import tokenizer as tok
+    from repro_torch.launch import serve as launcher
+    from repro_torch.models import api, encdec
+    from repro_torch.serving import ModelEngine, PoolServer
+
+    model, cfg = family_model(dev, WHISPER_ARCH, seed=11)
+    b, s = WHISPER_PREFILL
+    prefill, batch = drive_prefill(dev, WHISPER_ARCH, model, cfg, b, s,
+                                   np.random.default_rng(61), "frames")
+    enc_ms = wall_ms(lambda: encdec.encode(model, batch["frames"], cfg))
+    all_ms = wall_ms(lambda: api.prefill(model, batch, cfg))
+    log("families", f"{WHISPER_ARCH} one-shot prefill B={b}, "
+        f"{cfg.n_frontend_tokens} frames, S={s}: {all_ms:.3f} ms, of it "
+        f"the encoder {enc_ms:.3f} ms ({enc_ms / all_ms:.4f}; plain "
+        f"non-causal attention, as the JAX package's) and the decoder "
+        f"{all_ms - enc_ms:.3f} ms; max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated(dev)} bytes")
+    whisper_pallas_check(model, cfg, batch)
+    del batch
+    torch.cuda.empty_cache()
+
+    # (a2) beside granite-3-8b through the launcher, at its defaults
+    args = launcher.build_parser().parse_args(
+        ["--pool", "granite-3-8b", WHISPER_ARCH, "--device", str(dev)])
+    granite, gcfg = family_model(dev, "granite-3-8b", seed=12)
+    engines = {a: ModelEngine(a, c, params=m, max_batch=4,
+                              max_len=SERVE_MAX_LEN, detokenize=tok.decode,
+                              prefill_chunk=args.prefill_chunk, device=dev)
+               for a, m, c in (("granite-3-8b", granite, gcfg),
+                               (WHISPER_ARCH, model, cfg))}
+    reset_launches()
+    with routed(GreenServRouter) as ledger:
+        run = launcher.serve(args, engines,
+                             ModelPool([e.profile for e in engines.values()]))
+        torch.cuda.synchronize()
+    tally(ledger_launches("(a2) whisper beside granite", ledger))
+    resp = run["server"].responses
+    by_arch = {a: sum(r.model_name == a for r in resp.values())
+               for a in engines}
+    if len(resp) != len(run["queries"]) or not by_arch[WHISPER_ARCH]:
+        raise AssertionError(f"(a2) {len(resp)}/{len(run['queries'])} "
+                             f"answered, per model {by_arch}")
+    w = engines[WHISPER_ARCH]
+    log("families", f"(a2) launcher serve over granite-3-8b + "
+        f"{WHISPER_ARCH} (max_batch 4, max_len {SERVE_MAX_LEN}, chunk "
+        f"{args.prefill_chunk}): {len(resp)}/{len(run['queries'])} answered "
+        f"in {run['wall_s']:.2f} s, per model {by_arch}; whisper ticks "
+        f"{w.tick_counts}, cross K/V {tuple(w.cache['cross_k'].shape)} "
+        f"(zero: the stub frontend)")
+    del engines, run, granite
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (a3) disaggregated at max_batch 1: the exact gate
+    def fresh(arch, role="unified", batch=1):
+        return ModelEngine(arch, cfg, params=model, max_batch=batch,
+                           max_len=SERVE_MAX_LEN, detokenize=tok.decode,
+                           prefill_chunk=SERVE_CHUNK, role=role, device=dev)
+
+    def server_of(eng, twin=None):
+        router = GreenServRouter(RouterConfig(lam=0.4, energy_scale_wh=0.05),
+                                 ModelPool([eng.profile]), device=dev)
+        return PoolServer(router, {eng.name: eng}, tokenizer=tok.encode,
+                          prefill_chunk=SERVE_CHUNK,
+                          decode_engines={eng.name: twin} if twin else None)
+
+    def ticks(*engs):
+        return sum(sum(e.tick_counts.values()) for e in engs)
+
+    c1_pair(WHISPER_ARCH, 1, fresh, server_of, ticks, tally)
+    return prefill
+
+
+def gemma27_part(dev) -> dict:
+    """gemma3-27b at full depth and width: its one-shot prefill and
+    lockstep decode over a 32768-deep cache, with the gemma3 phase's
+    checks (``lockstep_decode``, ``gemma3_checks``).  Returns the
+    prefill's and the decode's launches."""
+    model, cfg = family_model(dev, GEMMA27_ARCH, seed=13)
+    prefill, batch = drive_prefill(dev, GEMMA27_ARCH, model, cfg,
+                                   *GEMMA_PREFILL, np.random.default_rng(67))
+    del batch
+    torch.cuda.empty_cache()
+    run = lockstep_decode(dev, model, cfg)
+    t = time.perf_counter()
+    gemma3_checks(dev, model, cfg, run["cache"])
+    log("families", f"{GEMMA27_ARCH} checks {time.perf_counter() - t:.2f} "
+        f"s; max_memory_allocated {torch.cuda.max_memory_allocated(dev)} "
+        f"bytes")
+    return {"prefill": prefill, "decode": run["launches"]}
+
+
+def llava_part(dev) -> dict:
+    """llava-next-34b at full width and ``LLAVA_LAYERS`` layers: one-shot
+    prefill with its 576 stub patch embeddings before the text."""
+    model, cfg = family_model(dev, LLAVA_ARCH, seed=14, n_layers=LLAVA_LAYERS)
+    launches, _ = drive_prefill(dev, LLAVA_ARCH, model, cfg, *LLAVA_PREFILL,
+                                np.random.default_rng(71),
+                                "frontend_embeddings")
+    log("families", f"{LLAVA_ARCH}: max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated(dev)} bytes")
+    return launches
+
+
+def grok_part(dev) -> dict:
+    """grok-1-314b at full width and ``GROK_LAYERS`` layers: one-shot
+    prefill (the gating kernel at E = 8, k = 2 a layer), then a
+    ``ModelEngine`` serving ``GROK_REQUESTS`` with chunked prefill, the
+    gating kernel at every MoE layer of every tick."""
+    from repro_torch.core.types import Query
+    from repro_torch.data import stream as stream_lib
+    from repro_torch.data import tokenizer as tok
+    from repro_torch.serving import ModelEngine, Request
+
+    model, cfg = family_model(dev, GROK_ARCH, seed=15, n_layers=GROK_LAYERS)
+    prefill, batch = drive_prefill(dev, GROK_ARCH, model, cfg, *GROK_PREFILL,
+                                   np.random.default_rng(73))
+    del batch
+    n_req, n_prompt, n_new = GROK_REQUESTS
+    eng = ModelEngine(GROK_ARCH, cfg, max_batch=n_req, max_len=SERVE_MAX_LEN,
+                      params=model, detokenize=tok.decode,
+                      prefill_chunk=SERVE_CHUNK, device=dev)
+    eng.submit_many([Request(query=Query(uid=q.uid, text=q.text),
+                             prompt_tokens=tok.encode(q.text)[:n_prompt],
+                             max_new_tokens=n_new)
+                     for q in stream_lib.make_stream(per_task=1,
+                                                     seed=5)[:n_req]])
+    reset_launches()
+    done, t = [], time.perf_counter()
+    while eng.pending:
+        done += eng.step()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    served = read_launches()
+    n_ticks = sum(eng.tick_counts.values())
+    want = dict.fromkeys(_ops_modules(), 0)
+    want["moe_gating"] = cfg.n_layers * n_ticks
+    if len(done) != n_req or eng.nonfinite_ticks or served != want:
+        raise AssertionError(f"{GROK_ARCH} engine: {len(done)}/{n_req} "
+                             f"answered, {eng.nonfinite_ticks} non-finite "
+                             f"ticks, launches {served}, expected {want}")
+    log("families", f"{GROK_ARCH} engine: {len(done)}/{n_req} requests "
+        f"answered ({sum(r.output_tokens for r in done)} tokens) in "
+        f"{wall:.3f} s; ticks {eng.tick_counts}, "
+        f"{served['moe_gating']} gating launches ({cfg.n_layers} a tick); "
+        f"max_memory_allocated {torch.cuda.max_memory_allocated(dev)} bytes")
+    return {k: prefill[k] + served[k] for k in prefill}
+
+
+@contextlib.contextmanager
+def router_launches():
+    """While active, count the router kernels' launches that the routing
+    calls, device cache probes and device encodes of every router make:
+    a LinUCB launch per Sherman–Morrison LinUCB call (either featurize
+    path), a featurize launch per device-path call that hashes text (a
+    task or cluster feature not handed in), per device probe and per
+    ``encode_batch_device``.  Yields the running counts."""
+    from repro_torch.core.context import ContextGenerator
+    from repro_torch.core.embedding import EmbeddingModel
+    from repro_torch.core.router import GreenServRouter
+
+    route = GreenServRouter.route_batch
+    probe = ContextGenerator.probe_batch
+    encode = EmbeddingModel.encode_batch_device
+    want = {"featurize": 0, "linucb": 0}
+
+    def routing(self, queries, *args, **kwargs):
+        if queries and self.config.algorithm == "linucb" and (
+                self.config.solve_mode == "sherman_morrison"):
+            want["linucb"] += 1
+            ctx = self.context
+            if self._device_featurize_active() and (
+                    (ctx.use_cluster and kwargs.get("embeddings") is None)
+                    or (ctx.use_task and kwargs.get("task_labels") is None)):
+                want["featurize"] += 1
+        return route(self, queries, *args, **kwargs)
+
+    def probing(self, texts):
+        if texts and self.device_active:
+            want["featurize"] += 1
+        return probe(self, texts)
+
+    def encoding(self, texts, device):
+        if len(texts):
+            want["featurize"] += 1
+        return encode(self, texts, device)
+
+    GreenServRouter.route_batch = routing
+    ContextGenerator.probe_batch = probing
+    EmbeddingModel.encode_batch_device = encoding
+    try:
+        yield want
+    finally:
+        GreenServRouter.route_batch = route
+        ContextGenerator.probe_batch = probe
+        EmbeddingModel.encode_batch_device = encode
+
+
+def bench_part(dev, tally) -> None:
+    """The paper's remaining experiments through the port's benches, every
+    router on the card with featurize "auto": Fig. 4 (``lambda_sweep``),
+    Fig. 5 (``features``) and its ``--perf`` mode with parity, Fig. 6
+    (``model_addition``), Tables 3–4 (``overhead``), ``prefill`` and
+    ``energy_model`` with its MAE gate; each table printed, the router
+    kernels' launches held to the routing calls of each bench."""
+    from repro_torch.benchmarks import (energy_model, features, lambda_sweep,
+                                        model_addition, overhead, prefill)
+
+    runs = (       # (name, whether it routes, the bench's entry point)
+        ("lambda_sweep", True, lambda: lambda_sweep.main(
+            per_task=BENCH_SWEEP_PER_TASK, n_runs=BENCH_RUNS, device=dev)),
+        ("features", True, lambda: features.main(
+            per_task=BENCH_SWEEP_PER_TASK, n_runs=BENCH_RUNS, device=dev)),
+        ("features --perf --smoke", True, lambda: features.perf_main(
+            smoke=True, device=dev)),
+        ("model_addition", True, lambda: model_addition.main(device=dev)),
+        ("overhead", True, lambda: overhead.main(device=dev)),
+        ("prefill", False, lambda: prefill.main(device=dev)),
+        ("energy_model --smoke", True, lambda: energy_model.main(
+            n_queries=BENCH_ENERGY_QUERIES, smoke=True, artifact=None,
+            device=dev)))
+    for name, routes, fn in runs:
+        reset_launches()
+        t = time.perf_counter()
+        with router_launches() as want:
+            lines = fn()
+        torch.cuda.synchronize()
+        got = read_launches()
+        if ({k: got[k] for k in want} != want
+                or bool(want["linucb"]) != routes
+                or any(v for k, v in got.items() if k not in want)):
+            raise AssertionError(f"bench {name}: launches {got}, expected "
+                                 f"{want}")
+        tally(want)
+        log("families", f"bench {name}: {time.perf_counter() - t:.2f} s, "
+            f"router launches {want}")
+        for line in lines:
+            log("families", f"  {line}")
+
+
+def families_phase(dev) -> dict:
+    """(a) whisper-medium, (b) gemma3-27b, llava-next-34b and grok-1-314b
+    at full width, (c) the paper benches; each part's models freed before
+    the next.  Returns every kernel's launches."""
+    launches = dict.fromkeys(_ops_modules(), 0)
+
+    def tally(got):
+        for k, v in got.items():
+            launches[k] += v
+
+    for name, part in (("(a) whisper", lambda: tally(whisper_part(dev,
+                                                                  tally))),
+                       ("(b) gemma3-27b", lambda: [tally(x) for x in
+                                                   gemma27_part(dev)
+                                                   .values()]),
+                       ("(b) llava", lambda: tally(llava_part(dev))),
+                       ("(b) grok", lambda: tally(grok_part(dev))),
+                       ("(c) benches", lambda: bench_part(dev, tally))):
+        t = time.perf_counter()
+        part()
+        gc.collect()
+        torch.cuda.empty_cache()
+        log("families", f"{name}: {time.perf_counter() - t:.2f} s")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; this script runs on the "
@@ -3979,6 +4437,12 @@ def main() -> int:
     t = time.perf_counter()
     engine_crosscheck(dev)
     log("crosscheck", f"phase {time.perf_counter() - t:.2f} s")
+    gc.collect()                  # every earlier phase's models
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    families = families_phase(dev)
+    log("families", f"phase {time.perf_counter() - t:.2f} s; launches "
+        f"{families}")
     log("total", f"{time.perf_counter() - t_start:.2f} s after the build")
 
     # the router kernels' rows are at Q = 1, LinUCB's at the paper pool's
@@ -3991,6 +4455,9 @@ def main() -> int:
     # models', zamba2's 13 sites and gemma3's 48 layers).  The decode
     # attention row is gemma3's global layers in lockstep decode (B = 4,
     # cache_len 32705 of 32768), its launches those of the 32 steps
+    # the families phase adds whisper's, llava's, gemma3-27b's and grok's
+    # flash launches, grok's gating launches, gemma3-27b's decode
+    # launches and the paper benches' router launches to each count
     f1 = next(r for r in feat["rows"] if r["label"] == "mode=both Q=1")
     l1 = next(r for r in lin["rows"] if r["label"] == "M=32 d=12 Q=1")
     g4 = next(r for r in gate["rows"] if r["t"] == 4 and not r["tied"])
@@ -4009,19 +4476,21 @@ def main() -> int:
     kernels = [
         row("featurize", "featurize.cu", "featurize/kernel.py:37",
             launches["featurize"] + paper["featurize"] + cached["featurize"]
-            + energy["featurize"] + resilience["featurize"], feat["worst"],
-            f1),
+            + energy["featurize"] + resilience["featurize"]
+            + families["featurize"], feat["worst"], f1),
         row("linucb", "linucb.cu", "linucb/kernel.py:25",
             launches["linucb"] + paper["linucb"] + cached["linucb"]
-            + energy["linucb"] + resilience["linucb"], lin["worst"], l1),
+            + energy["linucb"] + resilience["linucb"] + families["linucb"],
+            lin["worst"], l1),
         row("moe_gating", "moe_gating.cu", "moe_gating/kernel.py:23",
             launches["moe_gating"] + cached["moe_gating"]
-            + energy["moe_gating"] + resilience["moe_gating"], gate["worst"],
-            g4),
+            + energy["moe_gating"] + resilience["moe_gating"]
+            + families["moe_gating"], gate["worst"], g4),
         row("flash_attention", "flash_attention.cu",
             "flash_attention/kernel.py:33",
             prefill["flash_attention"] + hybrid["flash_attention"]
-            + gemma3["prefill"]["flash_attention"],
+            + gemma3["prefill"]["flash_attention"]
+            + families["flash_attention"],
             flash["worst"], fa, fa["library_ms"]),
         row("rwkv6", "rwkv6.cu", "rwkv6/kernel.py:25", prefill["rwkv6"],
             wkv["worst"], wkv["rows"][0]),
@@ -4029,7 +4498,8 @@ def main() -> int:
             ssd["worst"], ssd["rows"][0]),
         row("decode_attention", "decode_attention.cu",
             "decode_attention/kernel.py:29",
-            gemma3["decode"]["decode_attention"], decode["worst"], da,
+            gemma3["decode"]["decode_attention"]
+            + families["decode_attention"], decode["worst"], da,
             da["library_ms"]),
     ]
     for k in kernels:

@@ -6,9 +6,13 @@ closed loop (``baselines.run``, ``run_closed_loop``), the RouterBench
 scorecard and closed loop (``routerbench.run_algorithm``,
 ``run_closed_loop``), GreenCache's workload and drive
 (``cache.make_workload``, ``cache.drive``), the scenario lab
-(``scenarios``), the chaos drill (``chaos``) and disaggregated serving
-under bursty traffic (``disagg``).  It mirrors the JAX package's
-``benchmarks/common.py``, ``bench_baselines.py``, ``bench_routerbench.py``,
-``bench_cache.py``, ``bench_scenarios.py``, ``bench_chaos.py`` and
-``bench_disagg.py``, whose modules import the JAX package and so cannot
-serve the port."""
+(``scenarios``), the chaos drill (``chaos``), disaggregated serving
+under bursty traffic (``disagg``), and the paper's remaining experiments:
+the λ sweep (``lambda_sweep``, Fig. 4), the feature ablation and the
+featurization throughput (``features``, Fig. 5), model addition
+(``model_addition``, Fig. 6), the routing overhead (``overhead``, Tables
+3–4), steps to the first token against the prefill chunk (``prefill``)
+and the energy forecast against the metered ledger (``energy_model``).
+It mirrors the JAX package's ``benchmarks/common.py`` and its
+``bench_*.py`` of the same names, whose modules import the JAX package
+and so cannot serve the port."""

@@ -301,14 +301,20 @@ def run_record(result: ClosedLoopResult) -> dict:
 
 def write_bench_artifact(path: str, bench: str, seed: int,
                          headline: Dict[str, float],
-                         runs: Dict[str, dict]) -> None:
+                         runs: Dict[str, dict], **top) -> None:
     """The uniform BENCH_*.json schema every bench and scenario emits:
-    ``{"bench", "seed", "headline", "runs"}`` where each run carries a
-    ``trajectory`` list, so runs diff across commits."""
+    ``{"bench", "seed", "headline", "runs"}`` (plus a bench's own ``top``
+    fields, e.g. ``n_queries``) where each run carries a ``trajectory``
+    list, so runs diff across commits.  A headline value is a number or a
+    dict of numbers (per-cell figures)."""
+    def num(v):
+        return ({k: float(x) for k, x in v.items()} if isinstance(v, dict)
+                else float(v))
+
     with open(path, "w") as f:
         json.dump({"bench": bench, "seed": int(seed),
-                   "headline": {k: float(v) for k, v in headline.items()},
-                   "runs": runs}, f, indent=1, sort_keys=True)
+                   "headline": {k: num(v) for k, v in headline.items()},
+                   "runs": runs, **top}, f, indent=1, sort_keys=True)
 
 
 def run_scenario(scenario: Scenario, router: GreenServRouter,

@@ -1,6 +1,8 @@
-"""Architecture registry: the dense (full, sliding-window and local:global),
-MoE, RWKV6 and Mamba2-hybrid configs this package serves, plus reduced
-smoke variants.
+"""Architecture registry: the ten configs of the JAX package (dense with
+full, sliding-window and local:global attention, a vlm backbone, MoE,
+RWKV6, a Mamba2 hybrid and an encoder-decoder), in its order, plus
+reduced smoke variants.  ``configs/pool.py::build_assigned_pool`` orders
+its arms by ``ARCH_IDS``.
 
 Usage:
     from repro_torch.configs import get_config, for_mode
@@ -12,12 +14,15 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, List
 
-from repro_torch.configs import (gemma3_12b, granite_3_8b, h2o_danube_3_4b,
-                                 qwen2_moe_a2_7b, rwkv6_1_6b, zamba2_7b)
+from repro_torch.configs import (gemma3_12b, gemma3_27b, granite_3_8b,
+                                 grok_1_314b, h2o_danube_3_4b, llava_next_34b,
+                                 qwen2_moe_a2_7b, rwkv6_1_6b, whisper_medium,
+                                 zamba2_7b)
 from repro_torch.models.config import ModelConfig, scaled_down
 
-_MODULES = [granite_3_8b, h2o_danube_3_4b, qwen2_moe_a2_7b, rwkv6_1_6b,
-            zamba2_7b, gemma3_12b]
+_MODULES = [granite_3_8b, gemma3_27b, h2o_danube_3_4b, gemma3_12b,
+            whisper_medium, zamba2_7b, llava_next_34b, rwkv6_1_6b,
+            grok_1_314b, qwen2_moe_a2_7b]
 
 REGISTRY: Dict[str, ModelConfig] = {m.ARCH_ID: m.CONFIG for m in _MODULES}
 ARCH_IDS: List[str] = list(REGISTRY)

@@ -1,18 +1,22 @@
-"""The paper's 16-model pool.
+"""Model pools: the paper's 16-model pool and the assigned-architecture pool.
 
 The paper's pool (Table 2) is reproduced as profiles with parameter counts
 and analytic latency estimates; per-(model, task) accuracy/energy behaviour
 lives in ``repro_torch.data.profiles`` (calibrated to the paper's
-aggregates).  The pool of assigned architectures (the JAX package's
-``build_assigned_pool``) needs every one of its ten configs and is not
-ported yet.
+aggregates).
+
+The assigned-architecture pool makes the ten configs of ``configs/``
+routable pool members, each backed by its ``ModelConfig``, so the
+router's energy signal can come from the analytic cost model.
 """
 from __future__ import annotations
 
 from typing import List, Optional
 
+from repro_torch.core.energy import CostModelParams
 from repro_torch.core.pool import ModelPool
 from repro_torch.core.types import ModelProfile
+from repro_torch.models.config import ModelConfig
 
 # (name, family, params_b) — paper Table 2, ordered as the paper lists them.
 PAPER_POOL = [
@@ -65,3 +69,29 @@ def build_paper_pool(exclude: Optional[List[str]] = None) -> ModelPool:
                          f"{sorted(unknown)}")
     return ModelPool([make_profile(*row) for row in PAPER_POOL
                       if row[0] not in exclude])
+
+
+def cost_model_params(cfg: ModelConfig) -> CostModelParams:
+    return CostModelParams(
+        n_params=float(cfg.param_count()),
+        n_active_params=float(cfg.active_param_count()),
+        d_model=cfg.d_model,
+        n_layers=cfg.n_layers,
+        kv_heads=max(cfg.n_kv_heads, 1),
+        head_dim=cfg.head_dim,
+    )
+
+
+def build_assigned_pool() -> ModelPool:
+    """The ten configs as routable GreenServ pool members, in ``ARCH_IDS``'s
+    order."""
+    from repro_torch.configs import ARCH_IDS, get_config
+    profiles = []
+    for arch_id in ARCH_IDS:
+        cfg = get_config(arch_id)
+        params_b = cfg.param_count() / 1e9
+        mpt, pre = _latency_profile(cfg.active_param_count() / 1e9)
+        profiles.append(ModelProfile(
+            name=arch_id, family=cfg.layout, params_b=params_b,
+            arch_config=cfg, ms_per_token=mpt, prefill_ms=pre))
+    return ModelPool(profiles)

@@ -1,6 +1,6 @@
 """Model API for the serving engine, the one-shot prefill and lockstep
-decode (the dense, MoE, RWKV6 and Mamba2-hybrid subset of the JAX
-package's ``models/api.py``):
+decode, over every layout of the JAX package's ``models/api.py`` (dense,
+MoE, RWKV6, Mamba2-hybrid and encoder-decoder):
 
     init_params(cfg, seed, device)          initialized model
     forward(model, batch, cfg)              full-sequence logits + MoE aux
@@ -11,13 +11,18 @@ package's ``models/api.py``):
     splice_prefix(cache, slot, k, v)        prompt-prefix KV into a slot
     supports_chunked_prefill(cfg)           which layouts take the chunked path
 
-``batch`` is a dict with ``tokens`` (B, S) int32.  ``device=None`` means
-the card (``device.resolve_device``); pass ``device="cpu"`` for the CPU.
-The recurrent layouts (rwkv, mamba_hybrid) and windowed caches (ring
-buffers: dense sliding-window and local:global stacks deeper than their
-window) serve prompts token-wise through ``serve_step``;
-``prefill_chunk`` and ``splice_prefix`` need the full-depth positional KV
-cache of the dense and MoE layouts.
+``batch`` is a dict with ``tokens`` (B, S) int32, plus ``frames`` (B,
+n_frames, d) for the encoder-decoder and, optionally,
+``frontend_embeddings`` (B, n_front, d) prepended for a decoder-only vlm.
+``device=None`` means the card (``device.resolve_device``); pass
+``device="cpu"`` for the CPU.  ``lm`` hands the encdec layout to
+``models/encdec.py``; ``forward`` and ``prefill`` do it here.  The
+recurrent layouts (rwkv, mamba_hybrid) and windowed caches (ring buffers:
+dense sliding-window and local:global stacks deeper than their window)
+serve prompts token-wise through ``serve_step``; ``prefill_chunk`` and
+``splice_prefix`` need the full-depth positional KV cache of the dense,
+MoE and encdec layouts (for encdec the decoder's self K/V; cross K/V are
+per request).
 """
 from __future__ import annotations
 
@@ -25,7 +30,7 @@ from typing import Any, Dict, Tuple
 
 import torch
 
-from repro_torch.models import attention, lm
+from repro_torch.models import attention, encdec, lm
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.lm import Cache, DecoderLM, ForwardOut
 
@@ -41,16 +46,26 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     return lm.init_cache(cfg, batch, max_len, device)
 
 
+def _hidden(model: DecoderLM, batch: Batch, cfg: ModelConfig):
+    if cfg.layout == "encdec":
+        return encdec.forward_hidden(model, batch["frames"], batch["tokens"],
+                                     cfg)
+    return lm.forward_hidden(model, batch["tokens"], cfg,
+                             batch.get("frontend_embeddings"))
+
+
 def forward(model: DecoderLM, batch: Batch, cfg: ModelConfig) -> ForwardOut:
-    """Full-sequence logits (B, S, V) and the MoE aux loss."""
-    return lm.forward(model, batch["tokens"], cfg)
+    """Full-sequence logits (B, S, V) and the MoE aux loss (S counts a
+    decoder-only model's frontend positions)."""
+    hidden, aux = _hidden(model, batch, cfg)
+    return ForwardOut(model.head(hidden, cfg), aux)
 
 
 def prefill(model: DecoderLM, batch: Batch, cfg: ModelConfig) -> torch.Tensor:
     """Next-token logits for the *last* position only (B, V): the one-shot
     prefill recomputes the whole prompt and fills no cache (the serving
     engine uses ``prefill_chunk``, which fills the decode cache)."""
-    hidden, _ = lm.forward_hidden(model, batch["tokens"], cfg)
+    hidden, _ = _hidden(model, batch, cfg)
     return model.head(hidden[:, -1:], cfg)[:, 0]
 
 
@@ -77,7 +92,8 @@ def supports_chunked_prefill(cfg: ModelConfig) -> bool:
 
 def splice_prefix(cache: Cache, slot: int, k_block, v_block) -> Cache:
     """Splice a prompt-prefix KV block ((L, P, Hk, hd) each) into one
-    decode slot, in place, and set the slot's length to P."""
+    decode slot, in place, and set the slot's length to P (for encdec the
+    decoder's self K/V only; cross K/V are per request)."""
     attention.splice_kv(cache["k"], cache["v"], slot, k_block, v_block)
     cache["length"][slot] = k_block.shape[1]
     return cache

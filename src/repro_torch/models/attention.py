@@ -17,7 +17,7 @@ donated buffers, which is the same single copy updated where it lies.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
@@ -64,10 +64,13 @@ def _neg_inf(like: torch.Tensor) -> torch.Tensor:
 
 
 def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                  window: int, chunk: int) -> torch.Tensor:
-    """The JAX package's blocked jnp prefill attention (causal).
+                  window: int, chunk: int, causal: bool = True) -> torch.Tensor:
+    """The JAX package's blocked jnp prefill attention.
 
-    q: (B, Sq, Hq, hd); k, v: (B, Sk, Hk, hd) → (B, Sq, Hq, hd).  The keys
+    q: (B, Sq, Hq, hd); k, v: (B, Sk, Hk, hd) → (B, Sq, Hq, hd).  Query i
+    sees key j where j > i - ``window`` and, when ``causal``, j <= i (the
+    encoder-decoder's encoder and cross-attention run it non-causal, the
+    window still counted from the query's position).  The keys
     are cut into the reference's blocks (Sk // chunk of them, or one block
     when that does not divide Sk) and visited in order with an fp32 online
     softmax.  Unlike the flash kernel, scores are scaled after the q·k
@@ -97,8 +100,9 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         v_tile = v[:, ki * k_chunk:(ki + 1) * k_chunk].float()
         k_pos = ki * k_chunk + torch.arange(k_chunk, device=q.device)
         s = torch.einsum("bqhgd,bkhd->bhgqk", qf, k_tile) * scale
-        mask = ((k_pos[None, :] <= q_pos[:, None])
-                & (k_pos[None, :] > q_pos[:, None] - window))
+        mask = k_pos[None, :] > q_pos[:, None] - window
+        if causal:
+            mask &= k_pos[None, :] <= q_pos[:, None]
         s = torch.where(mask, s, neg_inf)
         m_new = torch.maximum(m, s.amax(dim=-1))
         p = torch.exp(s - m_new[..., None])
@@ -191,52 +195,70 @@ def write_chunk_(cache: torch.Tensor, new: torch.Tensor,
 def attention_prefill_chunk(params: Attention, x: torch.Tensor,
                             k_cache: torch.Tensor, v_cache: torch.Tensor,
                             window: int, lengths: torch.Tensor,
-                            active: torch.Tensor,
-                            cfg: ModelConfig) -> torch.Tensor:
+                            active: torch.Tensor, cfg: ModelConfig,
+                            rope: bool = True,
+                            cross: bool = False) -> torch.Tensor:
     """One attention layer over a C-token prompt slab at per-slot offsets.
 
     x: (B, C, d) slab activations; ``lengths``: (B,) tokens already in the
     cache per slot (the slab lands at positions lengths..lengths+C-1);
     ``active``: (B, C) bool — position c is a real token iff
-    c < n_active[b].  The slab's K/V are written into the caches in place
-    first (inactive positions write nothing), then the slab attends
-    write-then-read, so intra-chunk causality comes from the position
-    mask alone.  Returns out (B, C, d).
+    c < n_active[b].  Self-attention writes the slab's K/V into the caches
+    in place first (inactive positions write nothing), then the slab
+    attends write-then-read, so intra-chunk causality comes from the
+    position mask alone.  Cross-attention (``cross``) reads the static
+    encoder-side caches, every position visible to every query token, and
+    writes nothing.  Returns out (B, C, d).
     """
     dt = cfg.torch_dtype()
     c = x.shape[1]
     offs = torch.arange(c, dtype=torch.int32, device=x.device)
     positions = lengths[:, None] + offs[None, :]                 # (B, C)
-    q, k_new, v_new = project_qkv(params, x, positions, cfg)
-    write_chunk_(k_cache, k_new, lengths, active)
-    write_chunk_(v_cache, v_new, lengths, active)
-    out = chunk_attend(q, k_cache, v_cache, window, positions)
+    q, k_new, v_new = project_qkv(params, x, positions, cfg, rope=rope)
+    if cross:
+        n_f = k_cache.shape[1]
+        out = chunk_attend(q, k_cache, v_cache, n_f,
+                           torch.full_like(positions, n_f - 1))
+    else:
+        write_chunk_(k_cache, k_new, lengths, active)
+        write_chunk_(v_cache, v_new, lengths, active)
+        out = chunk_attend(q, k_cache, v_cache, window, positions)
     return torch.einsum("bshk,hkd->bsd", out, params.wo.to(dt))
 
 
 def attention_prefill(params: Attention, x: torch.Tensor,
-                      positions: torch.Tensor, window: int,
-                      cfg: ModelConfig) -> torch.Tensor:
-    """One causal self-attention layer over a whole sequence (one-shot
-    prefill): x (B, S, d), positions (B, S) → out (B, S, d).  Attends
-    through the flash-attention kernel's wrapper under ``cfg.use_pallas``,
-    else through ``flash_prefill``."""
+                      positions: torch.Tensor, window: int, cfg: ModelConfig,
+                      rope: bool = True,
+                      kv_override: Optional[Tuple[torch.Tensor,
+                                                  torch.Tensor]] = None
+                      ) -> torch.Tensor:
+    """One attention layer over a whole sequence (one-shot prefill): x
+    (B, S, d), positions (B, S) → out (B, S, d).  Causal self-attention,
+    or with ``kv_override`` (encoder-side K/V) non-causal attention to
+    those keys.  Attends through the flash-attention kernel's wrapper
+    under ``cfg.use_pallas``, else through ``flash_prefill``."""
     dt = cfg.torch_dtype()
-    q, k, v = project_qkv(params, x, positions, cfg)
+    q, k, v = project_qkv(params, x, positions, cfg, rope=rope)
+    if kv_override is not None:
+        k, v = kv_override
+    causal = kv_override is None
     if cfg.use_pallas:
-        out = fa_ops.flash_attention(q, k, v, window)
+        out = fa_ops.flash_attention(q, k, v, window, causal)
     else:
-        out = flash_prefill(q, k, v, window, cfg.attn_chunk)
+        out = flash_prefill(q, k, v, window, cfg.attn_chunk, causal)
     return torch.einsum("bshk,hkd->bsd", out, params.wo.to(dt))
 
 
 def attention_decode(params: Attention, x: torch.Tensor,
                      k_cache: torch.Tensor, v_cache: torch.Tensor,
                      window: int, cache_len: torch.Tensor,
-                     cfg: ModelConfig) -> torch.Tensor:
+                     cfg: ModelConfig, rope: bool = True,
+                     cross: bool = False) -> torch.Tensor:
     """x: (B, 1, d); ``cache_len`` (B,) per-slot lengths or 0-d (every row
     at the same length).  Appends the new K/V in place, then attends.
-    Returns out (B, 1, d).
+    Returns out (B, 1, d).  Cross-attention (``cross``) writes nothing and
+    attends to every entry of the static encoder-side caches, never
+    through the decode kernel.
 
     The append, as the JAX package makes it: a masked ``where`` when
     ``cfg.kv_update == "where"`` or the length is a vector (a slot already
@@ -250,7 +272,11 @@ def attention_decode(params: Attention, x: torch.Tensor,
     s = k_cache.shape[1]
     lockstep = cache_len.ndim == 0
     lengths = lengths_vec(cache_len, x.shape[0])
-    q, k_new, v_new = project_qkv(params, x, lengths[:, None], cfg)
+    q, k_new, v_new = project_qkv(params, x, lengths[:, None], cfg, rope=rope)
+    if cross:
+        out = decode_attend(q, k_cache, v_cache, window,
+                            torch.full_like(lengths, s))
+        return torch.einsum("bshk,hkd->bsd", out, params.wo.to(dt))
     if cfg.kv_update == "where" or not lockstep:
         sel = (torch.arange(s, device=x.device)[None]
                == lengths[:, None])[:, :, None, None]

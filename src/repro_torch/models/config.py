@@ -3,9 +3,8 @@
 One ``ModelConfig`` describes dense GQA transformers (full / sliding-window /
 local:global interleaved attention), MoE, RWKV6, Mamba2 hybrids and
 encoder-decoders — the JAX package's config language, copied as plain data.
-The model code of this package serves the ``dense``, ``moe``, ``rwkv`` and
-``mamba_hybrid`` layouts; ``encdec`` raises ``NotImplementedError`` where
-model code would need it.
+The model code of this package serves every layout: ``models/lm.py`` the
+decoder-only ones, ``models/encdec.py`` the encoder-decoder.
 """
 from __future__ import annotations
 

@@ -1,16 +1,21 @@
-"""Decoder-only LM: the dense, MoE, RWKV6 and Mamba2-hybrid layouts.
+"""Decoder-only LM: the dense, MoE, RWKV6 and Mamba2-hybrid layouts; the
+encoder-decoder layout is ``models/encdec.py``, and the constructors and
+the serving steps here hand it over.
 
 Public surface:
     DecoderLM / init_lm(cfg, seed, device)  modules with initialized params
-    forward_hidden(model, tokens, cfg)      final-normed hiddens + MoE aux
-    forward(model, tokens, cfg)             full logits + MoE aux (ForwardOut)
+                                            (an ``EncDecLM`` for encdec)
+    forward_hidden(model, tokens, cfg,      final-normed hiddens + MoE aux,
+                   frontend_embeddings)     a stub frontend's embeddings
+                                            prepended (vlm)
+    forward(model, tokens, cfg, ...)        full logits + MoE aux (ForwardOut)
     init_cache(cfg, batch, max_len, device) decode cache (ring buffers for
                                             windowed layers deeper than
                                             their window)
     decode_step(model, token, cache, cfg)   one-token serve step, per-slot
                                             or lockstep lengths
     prefill_chunk_step(model, toks, ...)    C-token prompt slab into the cache
-                                            (dense and MoE only)
+                                            (dense, MoE and encdec)
 
 The layer stack is a Python loop over ``nn.ModuleList`` blocks (the JAX
 package scans stacked parameters).  The hybrid's shared attention block
@@ -22,9 +27,7 @@ buffers of the window's size for their local layers (``k_local`` /
 (``k_global`` / ``v_global``), as the JAX package's ``cache_shapes``.
 Cache updates happen in place; the returned cache is the same dict with
 its ``length`` advanced — a (B,) vector of per-slot lengths, or a 0-d
-length when every row decodes in lockstep, which stays 0-d.  The
-``encdec`` layout raises ``NotImplementedError``: it waits for a later
-slice of the port.
+length when every row decodes in lockstep, which stays 0-d.
 """
 from __future__ import annotations
 
@@ -35,6 +38,7 @@ from torch import nn
 
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
+from repro_torch.models import encdec
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import rwkv as rwkv_lib
 from repro_torch.models import ssm as ssm_lib
@@ -43,14 +47,6 @@ from repro_torch.models.layers import (MLP, embed, init_module_, mlp, param,
                                        rms_norm, unembed)
 
 Cache = Dict[str, torch.Tensor]
-
-
-def check_layout(cfg: ModelConfig) -> None:
-    if cfg.layout not in ("dense", "moe", "rwkv", "mamba_hybrid"):
-        raise NotImplementedError(
-            f"{cfg.name}: layout {cfg.layout!r} waits for a later "
-            f"model-families slice of the port; dense, moe, rwkv and "
-            f"mamba_hybrid are served")
 
 
 class DenseBlock(nn.Module):
@@ -88,7 +84,10 @@ class DecoderLM(nn.Module):
 
     def __init__(self, cfg: ModelConfig, device: torch.device):
         super().__init__()
-        check_layout(cfg)
+        if cfg.layout not in _BLOCKS:
+            raise ValueError(f"{cfg.name}: layout {cfg.layout!r} is not a "
+                             f"decoder-only layout (encdec models are "
+                             f"encdec.EncDecLM)")
         dt = cfg.torch_param_dtype()
         self.embed = param((cfg.vocab_size, cfg.d_model), dt, device)
         self.unembed = (None if cfg.tie_embeddings
@@ -109,10 +108,13 @@ class DecoderLM(nn.Module):
 
 
 def init_lm(cfg: ModelConfig, seed: int = 0, device=None) -> DecoderLM:
-    """A DecoderLM with the JAX package's init rule, drawn from a
-    ``torch.Generator`` seeded with ``seed`` on ``device`` (the card unless
-    the caller names another).  The weights are random, not the JAX
-    package's draws: carry those with ``convert.params_from_jax``."""
+    """A DecoderLM (an ``encdec.EncDecLM`` for the encdec layout) with the
+    JAX package's init rule, drawn from a ``torch.Generator`` seeded with
+    ``seed`` on ``device`` (the card unless the caller names another).
+    The weights are random, not the JAX package's draws: carry those with
+    ``convert.params_from_jax``."""
+    if cfg.layout == "encdec":
+        return encdec.init_encdec(cfg, seed, device)
     device = resolve_device(device)
     model = DecoderLM(cfg, device)
     gen = torch.Generator(device=device)
@@ -151,15 +153,19 @@ def _attn_block(layer: nn.Module, x: torch.Tensor, positions: torch.Tensor,
 
 
 @torch.no_grad()
-def forward_hidden(model: DecoderLM, tokens: torch.Tensor, cfg: ModelConfig
+def forward_hidden(model: DecoderLM, tokens: torch.Tensor, cfg: ModelConfig,
+                   frontend_embeddings: Optional[torch.Tensor] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """tokens: (B, S).  Returns (final-normed hidden states (B, S, d), MoE
-    aux loss summed over layers — 0 for the other layouts).  Dense and
-    MoE layers attend through ``attention.attention_prefill`` with their
-    own window; RWKV layers start from a zero state each; the hybrid runs
-    its shared attention block, window S, after every ``attn_every``-th
-    Mamba layer."""
+    """tokens: (B, S_text); a stub frontend's ``frontend_embeddings`` (B,
+    n_front, d) are prepended (vlm).  Returns (final-normed hidden states
+    (B, S_total, d), MoE aux loss summed over layers — 0 for the other
+    layouts).  Dense and MoE layers attend through
+    ``attention.attention_prefill`` with their own window; RWKV layers
+    start from a zero state each; the hybrid runs its shared attention
+    block, window S, after every ``attn_every``-th Mamba layer."""
     x = embed(model.embed, tokens, cfg.torch_dtype())
+    if frontend_embeddings is not None:
+        x = torch.cat([frontend_embeddings.to(x.dtype), x], dim=1)
     b, s, _ = x.shape
     positions = torch.arange(s, dtype=torch.int32,
                              device=x.device).expand(b, s)
@@ -188,10 +194,10 @@ def forward_hidden(model: DecoderLM, tokens: torch.Tensor, cfg: ModelConfig
     return rms_norm(x, model.norm_f, cfg.norm_eps), aux
 
 
-def forward(model: DecoderLM, tokens: torch.Tensor,
-            cfg: ModelConfig) -> ForwardOut:
-    """Full logits (B, S, V) and the MoE aux loss."""
-    x, aux = forward_hidden(model, tokens, cfg)
+def forward(model: DecoderLM, tokens: torch.Tensor, cfg: ModelConfig,
+            frontend_embeddings: Optional[torch.Tensor] = None) -> ForwardOut:
+    """Full logits (B, S_total, V) and the MoE aux loss."""
+    x, aux = forward_hidden(model, tokens, cfg, frontend_embeddings)
     return ForwardOut(model.head(x, cfg), aux)
 
 
@@ -224,8 +230,10 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     state, shift_tm/shift_cm (L, B, d) and wkv (L, B, H, K, K), fp32.
     mamba_hybrid: conv (L, B, conv-1, d_inner+2n) in the compute dtype,
     ssm (L, B, H, 64, n) fp32, and the shared block's attn_k/attn_v
-    (n_sites, B, max_len, Hk, hd), one per site."""
-    check_layout(cfg)
+    (n_sites, B, max_len, Hk, hd), one per site.  encdec: ``encdec``'s
+    cache (self K/V plus the static cross K/V)."""
+    if cfg.layout == "encdec":
+        return encdec.init_cache(cfg, batch, max_len, device)
     device = resolve_device(device)
     dt = cfg.torch_dtype()
     zeros = lambda shape, dtype: torch.zeros(shape, dtype=dtype, device=device)
@@ -280,9 +288,12 @@ def prefill_chunk_step(model: DecoderLM, tokens: torch.Tensor, cache: Cache,
     n_active).  With C == 1 and n_active == 1 this computes exactly what
     ``decode_step`` computes.  MoE padding rows flow through dispatch but
     cannot evict real tokens: ``active`` is a prefix of each row and the
-    capacity sort is stable (``moe._dispatch``).  Recurrent layouts have
-    no positional cache to take a slab at an offset, and raise.
+    capacity sort is stable (``moe._dispatch``).  The encdec layout runs
+    ``encdec.prefill_chunk_step``.  Recurrent layouts have no positional
+    cache to take a slab at an offset, and raise.
     """
+    if cfg.layout == "encdec":
+        return encdec.prefill_chunk_step(model, tokens, cache, cfg, n_active)
     if cfg.layout not in ("dense", "moe") or "k" not in cache:
         raise ValueError(
             f"chunked prefill unsupported for layout={cfg.layout!r} / cache "
@@ -361,7 +372,10 @@ def decode_step(model: DecoderLM, token: torch.Tensor, cache: Cache,
     B tokens as one dispatch group.  Windowed caches run the ring layers
     and the global layers in the JAX package's order.  The hybrid runs its
     Mamba layers one step each and the shared block's decode at every
-    site, against that site's own KV cache."""
+    site, against that site's own KV cache.  The encdec layout runs
+    ``encdec.decode_step``."""
+    if cfg.layout == "encdec":
+        return encdec.decode_step(model, token, cache, cfg)
     dtype = cfg.torch_dtype()
     x = embed(model.embed, token, dtype)
     length = cache["length"]

@@ -1,8 +1,9 @@
 """Disaggregated prefill/decode serving in the port on the CPU against the
-JAX package: the cases of ``tests/test_disagg.py`` (granite-3-8b and
-qwen2-moe-a2.7b; whisper waits for the port's encoder-decoder) at smoke
-size in fp32, the JAX weights carried by ``params_from_jax`` and the
-port's energy constants set to the JAX package's.
+JAX package: the cases of ``tests/test_disagg.py`` (granite-3-8b,
+qwen2-moe-a2.7b and whisper-medium, whose migration moves the decoder's
+self K/V) at smoke size in fp32, the JAX weights carried by
+``params_from_jax`` and the port's energy constants set to the JAX
+package's.
 
   * a prefill engine plus a decode twin generates the tokens a unified
     engine does, and the JAX package's disaggregated pool's, with the
@@ -59,7 +60,7 @@ pytestmark = [pytest.mark.port, pytest.mark.disagg]
 MAX_LEN = 48
 CHUNK = 4
 EXACT = 1e-12
-ARCHS = ["granite-3-8b", "qwen2-moe-a2.7b"]
+ARCHS = ["granite-3-8b", "qwen2-moe-a2.7b", "whisper-medium"]
 F32 = dict(smoke=True, vocab_size=tok.VOCAB_SIZE, dtype="float32",
            kv_update="where")
 

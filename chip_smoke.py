@@ -73,12 +73,13 @@ Phases, in order; any failure raises and the script exits non-zero:
      one decision timed in each.  One featurize and one LinUCB launch per
      device-path routing call, one LinUCB launch per host-path
      Sherman–Morrison call, none for ε-greedy, CTS or the Cholesky mode;
-  5. serving: ``PoolServer`` over four full-width engines (granite-3-8b,
-     rwkv6-1.6b, qwen2-moe-a2.7b, h2o-danube-3-4b; bf16,
+  5. serving: ``PoolServer`` over four full-width engines cut in depth
+     (``SERVE_CUTS``: granite-3-8b at 10 of its 40 layers, rwkv6-1.6b,
+     qwen2-moe-a2.7b and h2o-danube-3-4b at 8 of their 24; bf16,
      ``use_pallas=True``, random weights from a seed) on a synthetic
      query stream plus a decode slice of short prompts — every query
      answered, finite logits, the router kernels and the gating kernel
-     launched by the main path (24 gating launches per MoE tick), real
+     launched by the main path (a gating launch per MoE layer a tick), real
      decode work, rwkv6 fed its prompts token-wise; a slice of the decode
      prompts goes straight into any engine the router sent fewer than 4
      queries — with three windows of the run under torch.profiler for the
@@ -128,9 +129,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      batch, before and after the pool grows from 15 to 16 arms, and the
      baselines' closed loop at its defaults (GreenServ answers all, at
      least random's accuracy, fewer Wh); (b) ``benchmarks/chaos.py``'s
-     ``main`` at per_task 60 without the fleet variant (its seven
-     invariants) with a host twin of every run's router, equal arms in
-     every batch while breakers open and close; (c) disaggregated
+     ``main`` at per_task 60 without the fleet variant (run in 5e; its
+     seven invariants) with a host twin of every run's router, equal arms
+     in every batch while breakers open and close; (c) disaggregated
      prefill/decode at full width on the serving weights (granite-3-8b,
      qwen2-moe-a2.7b; bf16, ``use_pallas=True``, max_len 192, chunk 8,
      fresh engines): (c1) tests/test_disagg.py's six queries unified and
@@ -152,6 +153,26 @@ Phases, in order; any failure raises and the script exits non-zero:
      The featurize, LinUCB and gating launches are held to the routing
      calls, cache probes and MoE ticks of each part (host twins' put
      back);
+  5e. the fleet (``repro_torch.fleet``), every router on the card: (a)
+     ``benchmarks/pool_scale.py --smoke`` ({1, 4} shards of an 8-model
+     paper-pool subset on ``SimEngine``s, 150 queries a shard, a shard
+     killed at 40% of the 4-shard run's arrivals) with its three
+     assertions, once with featurize "auto" (the device path) and once
+     "host": the two records equal but for the wall-clock decision time,
+     and equal to the JAX package's CPU figures; (b) the fleet chaos
+     variant (``chaos.run_fleet_chaos``, 80 queries, three shards, one
+     in the fault storm, one killed): the JAX package's CPU record; (c)
+     two shards on the card, each a ``PoolServer`` over the serving
+     engines' h2o-danube-3-4b and qwen2-moe-a2.7b (shared weights, own
+     caches), 32 stream queries with Poisson arrivals on the virtual
+     clock, shard 1 killed at 40% of them through ``drive_fleet``: every
+     query answered, one fail-over that redispatches stranded queries,
+     both adopted ``@shard1`` engines serving on the survivor, the
+     all-reduce run, finite logits; the fleet's checkpoint restored into
+     a fresh fleet of the same shape routes a 10-query probe as the
+     saved fleet does, shard by shard.  One featurize and one LinUCB
+     launch per device-path routing call, one LinUCB per host-path call,
+     a gating launch per MoE layer and tick;
   6. one-shot prefill: ``api.prefill`` on the four served models at full
      width (granite B=2 S=2048, danube B=1 S=6144, qwen2-moe B=2 S=2048,
      rwkv6 B=2 S=2048) through the flash kernel at every attention layer
@@ -197,13 +218,13 @@ Phases, in order; any failure raises and the script exits non-zero:
      prefill's ms apart; at 2 layers ``use_pallas`` True vs False on zero
      frames, the serving engine's stub frontend, and printed on N(0, 1)
      frames beside the plain path's own gap for a one-bf16-unit move of
-     the frames), served beside a full-width granite-3-8b through the
+     the frames), served beside granite-3-8b (``SERVE_CUTS``) through the
      launcher's ``serve`` at its defaults (every query answered, whisper
      among the arms), and a prefill engine with its decode twin at
      max_batch 1 against a unified engine (identical tokens, each
-     migrated K/V bit-equal); (b) gemma3-27b uncut: ``api.prefill`` at
-     B=1 S=8192 (62 flash launches), lockstep decode at B=4 over a
-     32768-deep cache (10 decode-attention launches a step) and the
+     migrated K/V bit-equal); (b) gemma3-27b at 12 of its 62 layers:
+     ``api.prefill`` at B=1 S=8192 (12 flash launches), lockstep decode at
+     B=4 over a 32768-deep cache (2 decode-attention launches a step) and the
      gemma3 phase's checks; llava-next-34b at 16 of its 60 layers,
      ``api.prefill`` with its 576 stub patch embeddings before 1,024
      text tokens; grok-1-314b at 2 of its 64 layers, ``api.prefill`` at
@@ -349,6 +370,13 @@ ARCH_PROFILES = {"granite-3-8b": ("dense", 8.2), RWKV_ARCH: ("rwkv", 1.3),
                  MOE_ARCH: ("moe", 14.3), "h2o-danube-3-4b": ("dense", 4.0)}
 SERVE_MAX_LEN = 192            # the serving launcher's max_len and
 SERVE_CHUNK = 8                # prefill_chunk (rwkv6's clamps to 1)
+# the served models at full width and cut in depth, for the script's time
+# limit: a scheduler step is eager PyTorch whose host time grows with the
+# layers it runs (the serving, cache, energy, resilience and fleet phases
+# were 446 s of a 977.7 s run at 40 / 12 / 24 / 24 layers on an H100),
+# and rwkv6 feeds every prompt token-wise, a tick a token
+SERVE_CUTS = {"granite-3-8b": {"n_layers": 10}, RWKV_ARCH: {"n_layers": 8},
+              MOE_ARCH: {"n_layers": 8}, "h2o-danube-3-4b": {"n_layers": 8}}
 PROFILE_STEPS = 5              # scheduler steps per profiled window
 MOE_MIN_DECODE_TICKS = 16      # below this, a decode slice goes straight
                                # into the MoE engine after the pool drains
@@ -459,13 +487,15 @@ GEMMA_ENGINE_MAX_LEN = 2048
 # llava-next-34b cut to 16 of its 60 layers (64.1 GiB in full) and its
 # prefill (batch, text tokens after 576 stub patches); grok-1-314b cut to
 # 2 of its 64 layers (9.2 GiB a layer in bf16), its prefill and engine
-# (requests, prompt, new tokens); gemma3-27b uncut, at GEMMA_PREFILL and
-# GEMMA_DECODE; the paper benches' sweeps at per_task 25 (T = 125; their
+# (requests, prompt, new tokens); gemma3-27b cut to 12 of its 62 layers
+# (two of its global layers; 32.90 s uncut on an H100 with its checks),
+# at GEMMA_PREFILL and GEMMA_DECODE; the paper benches' sweeps at per_task 25 (T = 125; their
 # default is 200) and two seeds, energy_model at 24 queries a cell (its
 # --smoke default 48), the rest at their defaults: the phase's time
 WHISPER_PREFILL = (2, 448)
 LLAVA_LAYERS, LLAVA_PREFILL = 16, (1, 1024)
 GROK_LAYERS, GROK_PREFILL, GROK_REQUESTS = 2, (2, 2048), (4, 32, 16)
+GEMMA27_LAYERS = 12
 BENCH_SWEEP_PER_TASK, BENCH_RUNS, BENCH_ENERGY_QUERIES = 25, 2, 24
 # the paper phase (the paper's closed loop on the 16-model pool, §6):
 PAPER_PER_TASK = 500           # T = 2,500, the paper's stream (§6.1.2)
@@ -532,6 +562,39 @@ DISAGG_USERS = 30              # the MMPP workload's users (both runs; cut
                                # to 30 by the script's time limit)
 DISAGG_KILL_QUERIES = 8
 DISAGG_LAUNCHER_QUERIES = 12
+# the fleet phase: the pool-scale bench's smoke run (150 queries a shard,
+# {1, 4} shards) in both featurize placements and the fleet chaos variant
+# at its 80 queries, each against the JAX package's figures on the CPU
+# (``benchmarks/bench_pool_scale.py --smoke``, ``bench_chaos.py``'s
+# ``run_fleet_chaos(n=80)``); then a full-width fleet of two shards over
+# the serving engines' h2o-danube-3-4b and qwen2-moe-a2.7b (the weights
+# shared), shard 1 killed at 40% of the arrivals
+POOL_SCALE_JAX = {
+    "shards1": {"n_queries": 150, "completed": 150, "span_s": 32.026,
+                "throughput_qps": 4.684, "total_wh": 4.992,
+                "unanswered": 0, "killed": False,
+                "stats": {"dispatched": 150, "redispatched": 0,
+                          "completed": 150, "failed": 0, "failovers": 0,
+                          "syncs": 0, "adopted_engines": 0}},
+    "shards4": {"n_queries": 600, "completed": 600, "span_s": 29.318,
+                "throughput_qps": 20.465, "total_wh": 16.72,
+                "unanswered": 0, "killed": True,
+                "stats": {"dispatched": 600, "redispatched": 59,
+                          "completed": 600, "failed": 0, "failovers": 1,
+                          "syncs": 90, "adopted_engines": 8}}}
+FLEET_CHAOS_N = 80
+FLEET_CHAOS_JAX = {"n_queries": 80, "completed": 80, "failed": 0,
+                   "span_s": 7.42,
+                   "stats": {"dispatched": 80, "redispatched": 9,
+                             "completed": 80, "failed": 0, "failovers": 1,
+                             "syncs": 23, "adopted_engines": 8}}
+FLEET_ARCHS = ("h2o-danube-3-4b", MOE_ARCH)
+FLEET_QUERIES = 32             # stream queries through the full-width fleet
+FLEET_GAP_TICKS = 6            # mean arrival gap, in modeled decode ticks
+FLEET_HEARTBEAT_TICKS = 10     # heartbeat timeout, in modeled decode ticks
+FLEET_KILL_FRAC = 0.4          # shard 1 dies at this share of the arrivals
+FLEET_SYNC_EVERY = 4
+FLEET_PROBE = 10               # queries the saved and restored fleets route
 # WKV shapes: rwkv6's prefill (B, S, H), its dtypes (r, k, v bf16; logw, u
 # and the zero initial state fp32, as forward_hidden passes them), then
 # the same in fp32 with a nonzero initial state, then a ragged S, S = 1
@@ -567,21 +630,38 @@ SSD_CASES = ((HYBRID_ARCH, 1, 4096, 112, 64, torch.bfloat16, None),
              ("N=128", 1, 70, 2, 128, torch.float32, "random"))
 
 
+T0 = time.perf_counter()
+
+
 def log(phase: str, msg: str) -> None:
-    print(f"[{phase}] {msg}", flush=True)
+    """A line of the report, after the seconds since the script started."""
+    print(f"{time.perf_counter() - T0:8.2f} [{phase}] {msg}", flush=True)
+
+
+def phase_done(phase: str, t: float, extra: str = "") -> None:
+    """The phase's line, on standard error as well: where a run is cut at
+    its time limit, the end of standard error still shows how far it got."""
+    msg = f"phase {time.perf_counter() - t:.2f} s{extra}"
+    log(phase, msg)
+    print(f"{time.perf_counter() - T0:8.2f} [{phase}] {msg}",
+          file=sys.stderr, flush=True)
 
 
 def cuda_ms(fn, n: int = 200, budget_s: float = 0.5) -> float:
     """Mean milliseconds per call of ``fn`` over back-to-back calls,
-    between two CUDA events, after a warm-up: ``n`` calls, or fewer (at
-    least 3) where ``n`` would take longer than ``budget_s``."""
-    for _ in range(3):
-        fn()
+    between two CUDA events, after a warm-up (two calls, four where a call
+    takes under 10 ms): ``n`` calls, or fewer (at least 3) where ``n``
+    would take longer than ``budget_s``."""
+    fn()
     torch.cuda.synchronize()
     t = time.perf_counter()
     fn()
     torch.cuda.synchronize()
-    n = max(3, min(n, int(budget_s / max(time.perf_counter() - t, 1e-9))))
+    probe = time.perf_counter() - t
+    if probe < 0.01:              # a fast call: two more warm-up calls
+        fn()
+        fn()
+    n = max(3, min(n, int(budget_s / max(probe, 1e-9))))
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -614,6 +694,13 @@ def device_ms(fn, kernel_name: str, n: int = 30, tries: int = 3):
         if count:
             return sum(e.self_device_time_total for e in seen) / 1e3 / count
     return None
+
+
+def device_normal(gen: torch.Generator, shape: tuple, dt) -> torch.Tensor:
+    """N(0, 1) samples drawn on the card from ``gen``, a seeded generator
+    there, then cast to ``dt``: drawn with numpy and copied over, the
+    attention rows' caches (up to 2 x 268 M values) took ~10 s a row."""
+    return torch.randn(shape, generator=gen, device=gen.device).to(dt)
 
 
 def ms_text(ms) -> str:
@@ -964,12 +1051,12 @@ def flash_phase(dev) -> dict:
     from repro_torch.kernels.flash_attention import kernel, ops
     from repro_torch.kernels.flash_attention.ref import attention_ref
 
-    rng = np.random.default_rng(9)
+    gen = torch.Generator(device=dev).manual_seed(9)
     rows, worst = [], 0.0
     for name, b, sq, sk, hq, hk, hd, win, causal, dt in FLASH_CASES:
-        q, k, v = (torch.from_numpy(rng.standard_normal(shape, np.float32))
-                   .to(dev, dt) for shape in ((b, sq, hq, hd), (b, sk, hk, hd),
-                                              (b, sk, hk, hd)))
+        q, k, v = (device_normal(gen, shape, dt)
+                   for shape in ((b, sq, hq, hd), (b, sk, hk, hd),
+                                 (b, sk, hk, hd)))
         route = kernel.route(dt, hd)
         out = ops.flash_attention(q, k, v, win, causal)
         ref = attention_ref(q, k, v, win, causal).float()
@@ -1255,20 +1342,40 @@ def ssd_phase(dev) -> dict:
     return {"rows": rows, "worst": worst}
 
 
-def scan_sass() -> None:
-    """Whether the scan kernels' compiled code holds tensor-core
-    instructions (HMMA for mma.sync, HGMMA for wgmma), from cuobjdump -sass
-    of the built library; a note where the toolkit's cuobjdump cannot read
-    it."""
+def start_sass():
+    """cuobjdump -sass of the built library, started in the background
+    (~14 s of host time on the card's machine) for ``scan_sass``; None
+    where the tool cannot be started."""
     from repro_torch.kernels import build
 
     tool = Path(build.find_nvcc()).with_name("cuobjdump")
     try:
-        out = subprocess.run([str(tool), "-sass", str(build.build())],
-                             capture_output=True, text=True, timeout=300,
-                             check=True).stdout
-    except (OSError, subprocess.SubprocessError) as e:
+        return subprocess.Popen([str(tool), "-sass", str(build.build())],
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+    except OSError as e:
         log("kernels", f"sass of the scan kernels could not be read ({e})")
+        return None
+
+
+def scan_sass(proc) -> None:
+    """Whether the scan kernels' compiled code holds tensor-core
+    instructions (HMMA for mma.sync, HGMMA for wgmma), from ``start_sass``'s
+    cuobjdump -sass of the built library; a note where the toolkit's
+    cuobjdump cannot read it."""
+    if proc is None:
+        return
+    try:
+        out, err = proc.communicate(timeout=300)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        log("kernels", "sass of the scan kernels could not be read "
+            "(cuobjdump ran over 300 s)")
+        return
+    if proc.returncode:
+        log("kernels", f"sass of the scan kernels could not be read "
+            f"(cuobjdump exited {proc.returncode}: {err.strip()[-200:]})")
         return
     counts = {}
     fn = None
@@ -1295,12 +1402,12 @@ def decode_phase(dev) -> dict:
     from repro_torch.kernels.decode_attention import kernel, ops
     from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 
-    rng = np.random.default_rng(37)
+    gen = torch.Generator(device=dev).manual_seed(37)
     rows, worst = [], 0.0
     for name, b, s, hq, hk, hd, clen, win, dt in DECODE_CASES:
-        q, k, v = (torch.from_numpy(rng.standard_normal(shape, np.float32))
-                   .to(dev, dt) for shape in ((b, 1, hq, hd), (b, s, hk, hd),
-                                              (b, s, hk, hd)))
+        q, k, v = (device_normal(gen, shape, dt)
+                   for shape in ((b, 1, hq, hd), (b, s, hk, hd),
+                                 (b, s, hk, hd)))
         # the lengths live on the device, as in lockstep decode
         cl = torch.full((), clen, dtype=torch.int32, device=dev)
         w = torch.full((), win, dtype=torch.int32, device=dev)
@@ -1774,8 +1881,8 @@ def decode_only(server) -> bool:
 
 def serving_engines(dev) -> dict:
     """The four full-width serving engines (bf16, ``use_pallas=True``,
-    random weights from a seed), at the launcher's ``max_batch``,
-    ``max_len`` and prefill chunk."""
+    random weights from a seed, cut in depth: ``SERVE_CUTS``), at
+    the launcher's ``max_batch``, ``max_len`` and prefill chunk."""
     from repro_torch.configs import for_mode, get_config
     from repro_torch.data import tokenizer as tok
     from repro_torch.serving.engine import ModelEngine
@@ -1783,8 +1890,9 @@ def serving_engines(dev) -> dict:
     engines = {}
     for i, arch in enumerate(SERVE_ARCHS):
         cfg = for_mode(get_config(arch, vocab_size=tok.VOCAB_SIZE,
-                                  max_seq_len=SERVE_MAX_LEN, use_pallas=True),
-                       "serve")
+                                  max_seq_len=SERVE_MAX_LEN, use_pallas=True,
+                                  **SERVE_CUTS.get(arch, {})), "serve")
+        full = get_config(arch).n_layers
         eng = engines[arch] = ModelEngine(
             arch, cfg, seed=i, max_batch=4, max_len=SERVE_MAX_LEN,
             detokenize=tok.decode, prefill_chunk=SERVE_CHUNK, device=dev)
@@ -1792,8 +1900,9 @@ def serving_engines(dev) -> dict:
                f"{cfg.moe_d_ff} + {cfg.n_shared_experts} shared"
                if cfg.layout == "moe" else "")
         n_params = sum(p.numel() for p in eng.params.parameters())
-        log("serve", f"{arch}: {cfg.n_layers}/{cfg.n_layers} layers (no "
-            f"depth cut), d_model {cfg.d_model}, d_ff {cfg.d_ff}{moe}, "
+        cut = "no depth cut" if cfg.n_layers == full else "depth cut"
+        log("serve", f"{arch}: {cfg.n_layers}/{full} layers ({cut}), "
+            f"d_model {cfg.d_model}, d_ff {cfg.d_ff}{moe}, "
             f"{n_params / 1e9:.3f} B params in bf16 "
             f"({cfg.active_param_count() / 1e9:.2f} B active by the energy "
             f"model), prefill chunk {eng.prefill_chunk}")
@@ -2766,8 +2875,8 @@ def chaos_part(dev, tally) -> None:
     reset_launches()
     t = time.perf_counter()
     with routed(GreenServRouter, mirror=True) as ledger:
-        lines = chaos.main(per_task=RES_CHAOS_PER_TASK, artifact=None,
-                           device=dev)
+        lines = chaos.main(per_task=RES_CHAOS_PER_TASK, fleet=False,
+                           artifact=None, device=dev)
     secs = time.perf_counter() - t
     tally(ledger_launches("(b) chaos", ledger))
     twin_check("(b) chaos", ledger)
@@ -3164,6 +3273,323 @@ def resilience_phase(dev, engines) -> dict:
         part()
         gc.collect()
         log("resilience", f"{name}: {time.perf_counter() - t:.2f} s")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# 5e. the fleet: sharded pools, the feedback all-reduce, fail-over and
+#     fleet checkpoints
+# ---------------------------------------------------------------------------
+
+
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi prints them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip().splitlines()[0]
+
+
+@contextlib.contextmanager
+def counted_route_calls(router_cls):
+    """While active, count every non-empty ``route_batch`` call of
+    ``router_cls`` (host-featurize routers: one LinUCB launch each)."""
+    route, calls = router_cls.route_batch, [0]
+
+    def counting(self, queries, *args, **kwargs):
+        calls[0] += bool(queries)
+        return route(self, queries, *args, **kwargs)
+
+    router_cls.route_batch = counting
+    try:
+        yield calls
+    finally:
+        router_cls.route_batch = route
+
+
+def fleet_record_check(what: str, got: dict, want: dict) -> None:
+    """Every field of ``want`` equal in ``got`` (floats as the JAX
+    package's bench rounds them)."""
+    differ = {k: (got.get(k), v) for k, v in want.items() if got.get(k) != v}
+    if differ:
+        raise AssertionError(f"{what}: differs from the JAX package's CPU "
+                             f"figures (got, want): {differ}")
+
+
+def update_parity(dev) -> None:
+    """The bandit update on the card rounds as on the CPU, bit for bit
+    (the CPU's is the JAX package's: ``tests/test_torch_fleet.py``), over
+    300 updates with the router's one-hot contexts and dense ones; its
+    time a feedback on the host clock."""
+    from repro_torch.core.bandits import BanditPolicy
+    from repro_torch.core.types import RouterConfig
+
+    rng = np.random.default_rng(0)
+    steps = []
+    for i in range(300):
+        x = np.zeros(12, np.float32)
+        x[[rng.integers(5), 5 + rng.integers(4), 9 + rng.integers(2),
+           11]] = 1.0
+        if i % 3 == 2:
+            x = rng.standard_normal(12).astype(np.float32)
+        steps.append((int(rng.integers(16)), x, float(rng.standard_normal())))
+    card, host = (BanditPolicy(RouterConfig(max_arms=32), 16, device=d)
+                  for d in (dev, "cpu"))
+    for arm, x, r in steps[:20]:
+        card.update(arm, x, r)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for arm, x, r in steps[20:]:
+        card.update(arm, x, r)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t) / (len(steps) - 20) * 1e3
+    for arm, x, r in steps:
+        host.update(arm, x, r)
+    got, want = card.state_dict(), host.state_dict()
+    differ = [k for k in want if not np.array_equal(got[k], want[k])]
+    if differ:
+        raise AssertionError(f"the update on the card rounds otherwise than "
+                             f"on the CPU in {differ}")
+    log("fleet", f"bandit update: card == CPU bit for bit over "
+        f"{len(steps)} updates; {ms:.4f} ms a feedback on the card (host "
+        f"clock, synchronized)")
+
+
+def pool_scale_part(dev, tally) -> None:
+    """(a) ``pool_scale.main(smoke=True)`` with its three assertions, once
+    with featurize "auto" (the device path) and once "host": the two
+    records equal in every field but the wall-clock decision time, and
+    equal to the JAX package's CPU figures."""
+    from repro_torch.benchmarks import pool_scale
+    from repro_torch.core.router import GreenServRouter
+
+    out = ROOT / "build"
+    out.mkdir(exist_ok=True)
+    records, lines = {}, {}
+    for featurize in ("auto", "host"):
+        path = out / f"BENCH_pool_scale_{featurize}.json"
+        reset_launches()
+        t = time.perf_counter()
+        if featurize == "auto":
+            with routed(GreenServRouter) as ledger:
+                lines[featurize] = pool_scale.main(
+                    smoke=True, artifact=str(path), device=dev)
+            tally(ledger_launches("(a) pool scale, device featurize",
+                                  ledger))
+            calls = len(ledger["batches"])
+        else:
+            with counted_route_calls(GreenServRouter) as counted:
+                lines[featurize] = pool_scale.main(
+                    smoke=True, artifact=str(path), device=dev,
+                    featurize="host")
+            got, calls = read_launches(), counted[0]
+            if (got["featurize"], got["linucb"]) != (0, calls):
+                raise AssertionError(f"(a) pool scale, host featurize: "
+                                     f"launches {got}, {calls} routing "
+                                     f"calls")
+            tally({"linucb": calls})
+            reset_launches()
+        secs = time.perf_counter() - t
+        runs = json.loads(path.read_text())["runs"]
+        records[featurize] = runs
+        log("fleet", f"(a) pool scale --smoke, featurize {featurize}: "
+            f"{secs:.2f} s, {calls} routing calls; " + " | ".join(
+                lines[featurize][:-1]))
+    decision = {f: {n: r.pop("mean_decision_ms") for n, r in runs.items()}
+                for f, runs in records.items()}
+    if records["auto"] != records["host"]:
+        differ = [n for n in records["auto"]
+                  if records["auto"][n] != records["host"][n]]
+        raise AssertionError(f"(a) device and host featurize records "
+                             f"differ in {differ}")
+    for name, want in POOL_SCALE_JAX.items():
+        fleet_record_check(f"(a) {name}", records["auto"][name], want)
+    ms = {n: (decision["auto"][n], decision["host"][n])
+          for n in decision["auto"]}
+    figures = {n: (w["completed"], w["span_s"], w["throughput_qps"])
+               for n, w in POOL_SCALE_JAX.items()}
+    log("fleet", f"(a) device == host featurize records in every field but "
+        f"the decision time (ms a query, device / host: {ms}); both == the "
+        f"JAX package's CPU figures (answered, span, q/s): {figures}")
+
+
+def fleet_chaos_part(dev, tally) -> None:
+    """(b) the fleet chaos variant: three shards, shard 0's engines in the
+    fault storm, shard 2 killed; the JAX package's record."""
+    from repro_torch.benchmarks import chaos
+    from repro_torch.core.router import GreenServRouter
+
+    reset_launches()
+    t = time.perf_counter()
+    with routed(GreenServRouter) as ledger:
+        rec = chaos.run_fleet_chaos(n=FLEET_CHAOS_N, device=dev)
+    secs = time.perf_counter() - t
+    tally(ledger_launches("(b) fleet chaos", ledger))
+    fleet_record_check("(b) fleet chaos", rec, FLEET_CHAOS_JAX)
+    log("fleet", f"(b) fleet chaos (n {FLEET_CHAOS_N}): {rec['completed']} "
+        f"answered, {rec['failed']} failed, span {rec['span_s']} modeled s, "
+        f"stats {rec['stats']}, fail-over at t {rec['events'][0]['t']:.6g} "
+        f"modeled s; == the JAX package's CPU record; "
+        f"{len(ledger['batches'])} routing calls in {secs:.2f} s")
+
+
+def fleet_full_width(dev, engines, tally) -> None:
+    """(c) a two-shard fleet at full width on one card: each shard a
+    ``PoolServer`` over h2o-danube-3-4b and qwen2-moe-a2.7b (bf16,
+    ``use_pallas=True``, the serving engines' weights), its router on the
+    card with featurize "auto"; Poisson arrivals on the virtual clock,
+    shard 1 killed through ``drive_fleet``; then the fleet's checkpoint
+    restored into a fresh fleet of the same shape."""
+    import shutil
+
+    from repro_torch.core.energy import decode_step_cost, roofline
+    from repro_torch.core.pool import ModelPool
+    from repro_torch.core.router import GreenServRouter
+    from repro_torch.core.types import RouterConfig
+    from repro_torch.data import stream as stream_lib
+    from repro_torch.data import tokenizer as tok
+    from repro_torch.data.scenarios import poisson_arrivals
+    from repro_torch.fleet import (base_model_name, build_fleet, drive_fleet,
+                                   plan_fleet)
+    from repro_torch.serving.engine import ModelEngine
+
+    def engine_factory(profile, spec):
+        src = engines[base_model_name(profile.name)]
+        return ModelEngine(profile.name, src.cfg, params=src.params,
+                           max_batch=4, max_len=SERVE_MAX_LEN,
+                           detokenize=tok.decode, prefill_chunk=SERVE_CHUNK,
+                           device=dev)
+
+    def router_factory(spec):
+        return GreenServRouter(
+            RouterConfig(lam=0.4, energy_scale_wh=0.05, seed=spec.index),
+            ModelPool([engines[a].profile for a in FLEET_ARCHS]), device=dev)
+
+    # the virtual clock's scale: the slower model's modeled decode tick
+    tick = max(roofline(*decode_step_cost(engines[a].cost_params,
+                                          SERVE_MAX_LEN), 0.0, 1).t_step
+               for a in FLEET_ARCHS)
+
+    def build(clk):
+        plan = plan_fleet(2, list(FLEET_ARCHS), devices=[dev])
+        return plan, build_fleet(
+            plan, router_factory, engine_factory,
+            sync_every=FLEET_SYNC_EVERY,
+            heartbeat_timeout_s=FLEET_HEARTBEAT_TICKS * tick,
+            clock=lambda: clk["t"],
+            server_kwargs=dict(tokenizer=tok.encode,
+                               accuracy_fn=exact_match_accuracy,
+                               prefill_chunk=SERVE_CHUNK))
+
+    clk = {"t": 0.0}
+    plan, ctrl = build(clk)
+    queries = stream_lib.make_stream(per_task=FLEET_QUERIES // 5 + 1,
+                                     seed=1)[:FLEET_QUERIES]
+    arrivals = poisson_arrivals(len(queries), 1.0 / (FLEET_GAP_TICKS * tick),
+                                seed=2)
+    survivor, victim = (ctrl.shards[s.name] for s in plan.shards)
+    t_kill = arrivals[int(FLEET_KILL_FRAC * len(arrivals))]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    t = time.perf_counter()
+    with routed(GreenServRouter) as ledger:
+        traj = drive_fleet(ctrl, queries, arrivals, clk, events=[
+            (t_kill, lambda: ctrl.kill_shard(victim.name))])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    every = [e for s in ctrl.shards.values()
+             for e in s.server.engines.values()]
+    moe = [e for e in every if e.cfg.layout == "moe"]
+    tally(ledger_launches("(c) full-width fleet", ledger,
+                          sum(sum(e.tick_counts.values()) for e in moe),
+                          engines[MOE_ARCH].cfg.n_layers))
+    adopted = [n for n in survivor.server.engines
+               if n.endswith(f"@{victim.name}")]
+    served = {n: sum(r.model_name == n for r in ctrl.responses.values())
+              for n in survivor.server.engines}
+    s = ctrl.stats
+    gates = [
+        (len(ctrl.responses) == len(queries) and not ctrl.failures
+         and not ctrl.unanswered, "every query answered, none failed"),
+        (s["failovers"] == 1 and len(ctrl.events) == 1,
+         "exactly one fail-over"),
+        (s["redispatched"] > 0, "the kill stranded queries on shard 1"),
+        (len(adopted) == 2 and all(served[n] > 0 for n in adopted),
+         "two adopted engines on the survivor, each serving"),
+        (s["syncs"] > 0, "the all-reduce ran"),
+        (not any(e.nonfinite_ticks for e in every), "finite logits")]
+    failed = [m for ok, m in gates if not ok]
+    if failed:
+        raise AssertionError(f"(c) full-width fleet: {failed}: stats {s}, "
+                             f"served {served}, events {ctrl.events}")
+    peak = torch.cuda.max_memory_allocated(dev)
+    log("fleet", f"(c) full-width fleet {FLEET_ARCHS} x 2 shards on "
+        f"{card_line()}: {len(ctrl.responses)}/{len(queries)} answered in "
+        f"{secs:.2f} s, {ctrl._steps} fleet steps "
+        f"({secs / ctrl._steps * 1e3:.3f} ms each), span "
+        f"{clk['t']:.6g} modeled s (decode tick {tick:.6g} s); stats {s}; "
+        f"fail-over at t {ctrl.events[0]['t']:.6g} (kill at {t_kill:.6g}), "
+        f"{ctrl.events[0]['redispatched']} redispatched; served {served}; "
+        f"{len(ledger['batches'])} routing calls, "
+        f"{sum(sum(e.tick_counts.values()) for e in moe)} MoE ticks; "
+        f"max_memory_allocated {peak} bytes; trajectory's last sample "
+        f"{traj[-1]}")
+
+    # the checkpoint: a fresh fleet of the same shape (the survivor's
+    # adopted arms added) restored from it routes a probe like the saved
+    # fleet, shard by shard
+    ckdir = ROOT / "build" / "fleet_checkpoint"
+    shutil.rmtree(ckdir, ignore_errors=True)
+    t = time.perf_counter()
+    ctrl.save_checkpoint(str(ckdir), step=ctrl._steps)
+    _, fresh = build({"t": 0.0})
+    pool = survivor.server.router.pool
+    for name in adopted:
+        profile = pool[pool.names.index(name)]
+        fresh.shards[survivor.name].server.add_engine(
+            profile, engine_factory(profile, survivor.spec))
+    if fresh.load_checkpoint(str(ckdir)) != ctrl._steps:
+        raise AssertionError("(c) the checkpoint restored another step")
+    probe = stream_lib.make_stream(per_task=2, seed=7)[:FLEET_PROBE]
+    reset_launches()
+    with routed(GreenServRouter) as ledger:
+        arms = {name: ([d.model_index for d in
+                        shard.server.router.route_batch(probe)],
+                       [d.model_index for d in fresh.shards[name].server
+                        .router.route_batch(probe)])
+                for name, shard in ctrl.shards.items()}
+    tally(ledger_launches("(c) checkpoint probe", ledger))
+    if any(a != b for a, b in arms.values()):
+        raise AssertionError(f"(c) the restored fleet routes otherwise: "
+                             f"{arms}")
+    shutil.rmtree(ckdir, ignore_errors=True)
+    log("fleet", f"(c) save_checkpoint / load_checkpoint into a fresh "
+        f"2-shard fleet in {time.perf_counter() - t:.2f} s: the same arms "
+        f"on a {FLEET_PROBE}-query probe, shard by shard: "
+        f"{ {n: a for n, (a, _) in arms.items()} }")
+
+
+def fleet_phase(dev, engines) -> dict:
+    """The fleet on the card (``repro_torch.fleet``), after the bandit
+    update's parity with the CPU: (a) the pool-scale bench, (b) the fleet
+    chaos variant, (c) a full-width fleet.  Returns the router kernels'
+    and the gating kernel's launches."""
+    launches = {"featurize": 0, "linucb": 0, "moe_gating": 0}
+
+    def tally(got):
+        for k in launches:
+            launches[k] += got.get(k, 0)
+
+    update_parity(dev)
+    for name, part in (("(a) pool scale", lambda: pool_scale_part(dev, tally)),
+                       ("(b) fleet chaos",
+                        lambda: fleet_chaos_part(dev, tally)),
+                       ("(c) full-width fleet",
+                        lambda: fleet_full_width(dev, engines, tally))):
+        t = time.perf_counter()
+        part()
+        gc.collect()
+        log("fleet", f"{name}: {time.perf_counter() - t:.2f} s")
     return launches
 
 
@@ -4091,7 +4517,7 @@ def whisper_part(dev, tally) -> dict:
     ``WHISPER_PREFILL`` with 1,500 stub frames, the decoder's self-attention
     on the flash kernel (one wgmma launch a decoder layer), the encoder's
     and the whole prefill's ms apart, and ``whisper_pallas_check``; (a2)
-    served beside a full-width granite-3-8b through the launcher's
+    served beside granite-3-8b (``SERVE_CUTS``) through the launcher's
     ``serve`` at its defaults; (a3) a prefill engine and its decode twin
     at max_batch 1 against a unified engine (``c1_pair``).  Returns the
     prefill's launches."""
@@ -4122,7 +4548,8 @@ def whisper_part(dev, tally) -> dict:
     # (a2) beside granite-3-8b through the launcher, at its defaults
     args = launcher.build_parser().parse_args(
         ["--pool", "granite-3-8b", WHISPER_ARCH, "--device", str(dev)])
-    granite, gcfg = family_model(dev, "granite-3-8b", seed=12)
+    granite, gcfg = family_model(dev, "granite-3-8b", seed=12,
+                                 **SERVE_CUTS["granite-3-8b"])
     engines = {a: ModelEngine(a, c, params=m, max_batch=4,
                               max_len=SERVE_MAX_LEN, detokenize=tok.decode,
                               prefill_chunk=args.prefill_chunk, device=dev)
@@ -4172,11 +4599,12 @@ def whisper_part(dev, tally) -> dict:
 
 
 def gemma27_part(dev) -> dict:
-    """gemma3-27b at full depth and width: its one-shot prefill and
-    lockstep decode over a 32768-deep cache, with the gemma3 phase's
+    """gemma3-27b at full width, ``GEMMA27_LAYERS`` deep: its one-shot
+    prefill and lockstep decode over a 32768-deep cache, with the gemma3 phase's
     checks (``lockstep_decode``, ``gemma3_checks``).  Returns the
     prefill's and the decode's launches."""
-    model, cfg = family_model(dev, GEMMA27_ARCH, seed=13)
+    model, cfg = family_model(dev, GEMMA27_ARCH, seed=13,
+                              n_layers=GEMMA27_LAYERS)
     prefill, batch = drive_prefill(dev, GEMMA27_ARCH, model, cfg,
                                    *GEMMA_PREFILL, np.random.default_rng(67))
     del batch
@@ -4377,10 +4805,7 @@ def main() -> int:
     from repro_torch.device import resolve_device
     from repro_torch.kernels import build
 
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip()
-    print(smi.splitlines()[0], flush=True)
+    print(card_line(), flush=True)
     log("env", f"python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"cuda {torch.version.cuda}")
     dev = resolve_device("cuda")
@@ -4391,59 +4816,66 @@ def main() -> int:
 
     t_start = time.perf_counter()
     t = time.perf_counter()
-    feat = featurize_phase(dev)
-    lin = linucb_phase(dev)
-    gate = gating_phase(dev)
-    flash = flash_phase(dev)
-    wkv = wkv_phase(dev)
-    ssd = ssd_phase(dev)
-    scan_sass()
-    decode = decode_phase(dev)
-    log("kernels", f"phase {time.perf_counter() - t:.2f} s")
+    sass = start_sass()
+    try:
+        feat = featurize_phase(dev)
+        lin = linucb_phase(dev)
+        gate = gating_phase(dev)
+        flash = flash_phase(dev)
+        wkv = wkv_phase(dev)
+        ssd = ssd_phase(dev)
+        decode = decode_phase(dev)
+        scan_sass(sass)
+    finally:
+        if sass is not None and sass.poll() is None:
+            sass.kill()
+            sass.communicate()
+    phase_done("kernels", t)
     t = time.perf_counter()
     router_phase(dev)
-    log("router", f"phase {time.perf_counter() - t:.2f} s")
+    phase_done("router", t)
     t = time.perf_counter()
     paper = paper_phase(dev)
     gc.collect()                  # the phase's routers and servers
     torch.cuda.empty_cache()
-    log("paper", f"phase {time.perf_counter() - t:.2f} s")
+    phase_done("paper", t)
     t = time.perf_counter()
     launches, engines = serving_phase(dev)
-    log("serve", f"phase {time.perf_counter() - t:.2f} s")
+    phase_done("serve", t)
     t = time.perf_counter()
     cached, cache_off_joules = cache_phase(dev, engines)
-    log("cache", f"phase {time.perf_counter() - t:.2f} s")
+    phase_done("cache", t)
     t = time.perf_counter()
     energy = energy_phase(dev, engines, cache_off_joules)
-    log("energy", f"phase {time.perf_counter() - t:.2f} s")
+    phase_done("energy", t)
     t = time.perf_counter()
     resilience = resilience_phase(dev, engines)
-    log("resilience", f"phase {time.perf_counter() - t:.2f} s; launches "
-        f"{resilience}")
+    phase_done("resilience", t, f"; launches {resilience}")
+    t = time.perf_counter()
+    fleet = fleet_phase(dev, engines)
+    phase_done("fleet", t, f"; launches {fleet}")
     t = time.perf_counter()
     prefill = prefill_phase(dev, engines)
     del engines
     torch.cuda.empty_cache()
-    log("prefill", f"phase {time.perf_counter() - t:.2f} s")
+    phase_done("prefill", t)
     t = time.perf_counter()
     hybrid = hybrid_phase(dev)
     torch.cuda.empty_cache()
-    log("hybrid", f"phase {time.perf_counter() - t:.2f} s")
+    phase_done("hybrid", t)
     t = time.perf_counter()
     gemma3 = gemma3_phase(dev)
     torch.cuda.empty_cache()
-    log("gemma3", f"phase {time.perf_counter() - t:.2f} s")
+    phase_done("gemma3", t)
     t = time.perf_counter()
     engine_crosscheck(dev)
-    log("crosscheck", f"phase {time.perf_counter() - t:.2f} s")
+    phase_done("crosscheck", t)
     gc.collect()                  # every earlier phase's models
     torch.cuda.empty_cache()
     t = time.perf_counter()
     families = families_phase(dev)
-    log("families", f"phase {time.perf_counter() - t:.2f} s; launches "
-        f"{families}")
-    log("total", f"{time.perf_counter() - t_start:.2f} s after the build")
+    phase_done("families", t, f"; launches {families}")
+    phase_done("total", t_start, " after the build")
 
     # the router kernels' rows are at Q = 1, LinUCB's at the paper pool's
     # M = 32, where most of their launches fall (their launches: serving's
@@ -4477,15 +4909,16 @@ def main() -> int:
         row("featurize", "featurize.cu", "featurize/kernel.py:37",
             launches["featurize"] + paper["featurize"] + cached["featurize"]
             + energy["featurize"] + resilience["featurize"]
-            + families["featurize"], feat["worst"], f1),
+            + fleet["featurize"] + families["featurize"], feat["worst"], f1),
         row("linucb", "linucb.cu", "linucb/kernel.py:25",
             launches["linucb"] + paper["linucb"] + cached["linucb"]
-            + energy["linucb"] + resilience["linucb"] + families["linucb"],
-            lin["worst"], l1),
+            + energy["linucb"] + resilience["linucb"] + fleet["linucb"]
+            + families["linucb"], lin["worst"], l1),
         row("moe_gating", "moe_gating.cu", "moe_gating/kernel.py:23",
             launches["moe_gating"] + cached["moe_gating"]
             + energy["moe_gating"] + resilience["moe_gating"]
-            + families["moe_gating"], gate["worst"], g4),
+            + fleet["moe_gating"] + families["moe_gating"], gate["worst"],
+            g4),
         row("flash_attention", "flash_attention.cu",
             "flash_attention/kernel.py:33",
             prefill["flash_attention"] + hybrid["flash_attention"]

@@ -29,11 +29,13 @@ Invariants asserted (``--smoke`` and full runs alike):
     dispatch decisions inside the storm window drops versus baseline
     (the per-arm ``selections`` trajectory is the artifact CI keeps).
 
+A fleet variant (on by default; ``--no-fleet`` skips it) wraps one
+shard's engines in the same storm and kills a different shard mid-run:
+responses + harvested failures must still cover every query
+(``FleetController.failures``).
+
 The routers run on ``device`` (None: the card; ``--device cpu`` for the
-CPU) with featurize "auto".  The JAX package's fleet variant
-(``run_fleet_chaos``: one shard's engines in the storm, another shard
-killed) waits for the port's fleet layer (ROADMAP A.10): ``--fleet``
-raises.
+CPU) with featurize "auto".
 
     PYTHONPATH=src python -m repro_torch.benchmarks.chaos [--smoke]
 """
@@ -188,17 +190,90 @@ def _assert_or_report(checks) -> List[str]:
     return [msg for _, msg in checks]
 
 
+# -- fleet variant -----------------------------------------------------------
+
+
+def run_fleet_chaos(n: int = 80, seed: int = 0, device=None) -> dict:
+    """A 3-shard fleet where shard 0's engines ride the fault storm and
+    shard 2 is killed mid-run — responses + harvested terminal failures
+    must still cover every dispatched query."""
+    from repro_torch.benchmarks.common import ENERGY_SCALE_WH
+    from repro_torch.configs.pool import build_paper_pool
+    from repro_torch.core.pool import ModelPool
+    from repro_torch.core.types import RouterConfig
+    from repro_torch.data.scenarios import poisson_arrivals
+    from repro_torch.data.stream import make_stream
+    from repro_torch.device import resolve_device
+    from repro_torch.fleet import (base_model_name, build_fleet,
+                                   drive_fleet, plan_fleet)
+    from repro_torch.serving import FaultInjector, SimEngine
+    from repro_torch.serving.faults import fault_storm
+
+    device = resolve_device(device)
+    exclude = ["yi-34b", "gemma-3-27b", "qwen2.5-14b", "phi-4-14b",
+               "gemma-3-12b", "llama-3.1-8b", "qwen2.5-7b", "mistral-7b"]
+    target = "qwen2.5-3b"
+    clk = {"t": 0.0}
+    clock = lambda: clk["t"]  # noqa: E731
+    sim = OutcomeSimulator(seed=seed + 3)
+    outcome = lambda q, m: sim(q, base_model_name(m))  # noqa: E731
+    pool_names = [p.name for p in build_paper_pool(exclude=exclude)]
+    plan = plan_fleet(3, pool_names, devices=[device])
+    queries = make_stream(per_task=max(1, n // 5), seed=seed)[:n]
+    arrivals = poisson_arrivals(len(queries), 12.0, seed=seed + 1)
+    faults = fault_storm(span_s=arrivals[-1], target=target,
+                         others=[p for p in pool_names if p != target],
+                         seed=seed + 2)
+    storm_shard = plan.shards[0].name
+
+    def router_factory(spec):
+        cfg = RouterConfig(lam=0.4, seed=seed + spec.index,
+                           energy_scale_wh=ENERGY_SCALE_WH, max_arms=24)
+        return make_closed_loop_router(
+            config=cfg, pool=ModelPool(build_paper_pool(exclude=exclude)),
+            fit_classifier=False, device=device)
+
+    def engine_factory(profile, spec):
+        eng = SimEngine(profile, outcome, steps_per_query=2,
+                        concurrency=4, clock=clock)
+        base = base_model_name(profile.name)
+        if spec.name == storm_shard and base in faults:
+            return FaultInjector(eng, faults[base], clock=clock)
+        return eng
+
+    controller = build_fleet(
+        plan, router_factory, engine_factory, sync_every=4,
+        heartbeat_timeout_s=0.3, clock=clock,
+        server_kwargs=reliability_kwargs())
+    victim = plan.shards[-1].name
+    t_kill = arrivals[int(0.4 * len(arrivals))]
+    trajectory = drive_fleet(
+        controller, queries, arrivals, clk,
+        events=[(t_kill, lambda: controller.kill_shard(victim))])
+    answered = len(controller.responses) + len(controller.failures)
+    checks = [
+        (answered == len(queries),
+         f"fleet chaos lost requests: {len(controller.responses)} "
+         f"responses + {len(controller.failures)} failures != "
+         f"{len(queries)}"),
+        (controller.stats["failovers"] >= 1,
+         "shard kill never surfaced as a fail-over"),
+    ]
+    _assert_or_report(checks)
+    return {"n_queries": len(queries),
+            "completed": len(controller.responses),
+            "failed": len(controller.failures),
+            "span_s": round(clk["t"], 3), "stats": dict(controller.stats),
+            "events": controller.events, "trajectory": trajectory}
+
+
 # -- entry point -------------------------------------------------------------
 
 
 def main(per_task: int = 60, seed: int = 0, smoke: bool = False,
-         fleet: bool = False,
+         fleet: bool = True,
          artifact: Optional[str] = "BENCH_chaos.json",
          device=None) -> List[str]:
-    if fleet:
-        raise NotImplementedError(
-            "the fleet chaos variant waits for the port's fleet layer "
-            "(ROADMAP A.10)")
     if smoke:
         # below ~100 queries the bandit is still exploring and the storm
         # window holds too little traffic to measure anything
@@ -249,6 +324,14 @@ def main(per_task: int = 60, seed: int = 0, smoke: bool = False,
     runs = {"reliability": {**run_record(rel),
                             "storm_targets": list(targets)},
             "baseline": run_record(base)}
+    if fleet:
+        fleet_rec = run_fleet_chaos(n=24 if smoke else 80, seed=seed,
+                                    device=device)
+        runs["fleet"] = fleet_rec
+        lines.append(
+            f"fleet,{fleet_rec['completed']}/{fleet_rec['n_queries']},"
+            f"{fleet_rec['failed']},,,,,"
+            f"{fleet_rec['stats'].get('failovers', 0)} failovers,,")
     if artifact:
         write_bench_artifact(
             artifact, bench="chaos", seed=seed,
@@ -275,15 +358,14 @@ if __name__ == "__main__":
     ap.add_argument("--smoke", action="store_true",
                     help="scaled-down run; chaos invariants still "
                          "asserted")
-    ap.add_argument("--fleet", action="store_true",
-                    help="the fleet chaos variant (waits for the port's "
-                         "fleet layer: raises)")
+    ap.add_argument("--no-fleet", action="store_true",
+                    help="skip the fleet chaos variant")
     ap.add_argument("--artifact", default="BENCH_chaos.json",
                     help="artifact path ('' disables)")
     ap.add_argument("--device", default=None,
                     help="the routers' device (default: the card)")
     args = ap.parse_args()
     print("\n".join(main(per_task=args.per_task, seed=args.seed,
-                         smoke=args.smoke, fleet=args.fleet,
+                         smoke=args.smoke, fleet=not args.no_fleet,
                          artifact=args.artifact or None,
                          device=args.device)))

@@ -166,22 +166,52 @@ def greedy_scores(state: BanditState, X: torch.Tensor,
     return mean[None, :].expand(X.shape[0], -1)
 
 
-def sherman_morrison_update(state: BanditState, arm: int, x: torch.Tensor,
-                            r: torch.Tensor, config: RouterConfig) -> None:
+def _dot_chain(acc: torch.Tensor, a: torch.Tensor, v,
+               host_v: np.ndarray = None) -> torch.Tensor:
+    """``acc`` += Σ_j a[..., j]·v[j], in place, as XLA's CPU backend sums a
+    float32 product of length 12: one fused multiply-add per j, in order.
+    Each step runs in float64 (the product of two float32s is exact
+    there) and rounds once into the float32 ``acc``; ``a`` and ``v`` are
+    float64.  Where ``v`` is known on the host (``host_v``), its zero
+    terms, which leave the sum as it is, are skipped."""
+    for j in range(a.shape[-1]):
+        if host_v is None:
+            acc.addcmul_(a[..., j], v[j])
+        elif host_v[j] != 0.0:
+            acc.add_(a[..., j], alpha=float(host_v[j]))
+    return acc
+
+
+def sherman_morrison_update(state: BanditState, arm: int, x: np.ndarray,
+                            r: np.float32, config: RouterConfig) -> None:
     """LinUCB posterior update (paper §4.3), in place:
         A_m ← A_m + x xᵀ ;  b_m ← b_m + r x ;  θ̂_m = A_m⁻¹ b_m
     with A⁻¹ maintained by Sherman–Morrison:
         A⁻¹ ← A⁻¹ − (A⁻¹ x)(A⁻¹ x)ᵀ / (1 + xᵀ A⁻¹ x)
-    """
+
+    In the JAX package's float32 arithmetic on its CPU backend: the
+    products and sums fuse into multiply-adds (A + x xᵀ and b + r x
+    elementwise, each matrix-vector product a chain of them over j in
+    order, the 1 of the denominator its chain's first term), and
+    (A⁻¹x)(A⁻¹x)ᵀ / denom rounds the product, then the quotient.  Any
+    other summation order rounds θ̂ and A⁻¹ an ulp or two apart, enough
+    to flip a near tie between arms (``PERF.md`` §6).  A fused
+    multiply-add is a float64 multiply-add rounded to float32: the same
+    number unless the float64 sum is inexact and lands on a float32
+    rounding midpoint, about one step in 2^29.  ``x`` and ``r`` are on
+    the host; the state on any device."""
+    dev = state.A.device
+    x64 = torch.from_numpy(x).to(dev).double()
     ainv = state.A_inv[arm]
-    ainv_x = ainv @ x
-    denom = 1.0 + x @ ainv_x
+    ainv_x = _dot_chain(torch.zeros_like(state.b[arm]), ainv.double(), x64,
+                        x)
+    denom = _dot_chain(torch.ones((), device=dev), ainv_x.double(), x64, x)
     ainv_new = ainv - torch.outer(ainv_x, ainv_x) / denom
-    b_m = state.b[arm] + r * x
-    state.A[arm] += torch.outer(x, x)
+    state.A[arm].addcmul_(x64[:, None], x64[None, :])
     state.A_inv[arm] = ainv_new
-    state.b[arm] = b_m
-    state.theta[arm] = ainv_new @ b_m
+    b_m = state.b[arm].add_(x64, alpha=float(r))
+    state.theta[arm] = 0.0
+    _dot_chain(state.theta[arm], ainv_new.double(), b_m.double())
     state.reward_sum[arm] += r
     state.counts[arm] += 1.0
     state.eps.copy_(torch.clamp(state.eps * config.epsilon_decay,
@@ -302,11 +332,9 @@ class BanditPolicy:
         self.state = self.state._replace(key=prng.split(self.state.key, 2)[0])
 
     def update(self, arm: int, x: np.ndarray, reward: float) -> None:
-        sherman_morrison_update(
-            self.state, int(arm),
-            torch.as_tensor(np.asarray(x, np.float32), device=self.device),
-            torch.tensor(reward, dtype=torch.float32, device=self.device),
-            self.config)
+        sherman_morrison_update(self.state, int(arm),
+                                np.asarray(x, np.float32).copy(),
+                                np.float32(reward), self.config)
 
     def add_arm(self) -> int:
         self.state, idx = add_arm(self.state, self.config)

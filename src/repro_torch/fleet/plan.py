@@ -1,0 +1,108 @@
+"""Fleet planning: partition the device set into engine-pool shards.
+
+``plan_fleet`` splits the visible CUDA devices round-robin into
+``n_shards`` disjoint groups.  Each shard runs a full replica of the model
+pool behind its own ``PoolServer`` + ``GreenServRouter`` (weak scaling: n
+shards absorb n× the arrival rate at ~flat per-query latency).
+
+The JAX package also builds one ``("data", "model")`` mesh per shard and
+one over the whole fleet, for the elastic re-mesh record a fail-over
+leaves.  Those meshes wait for the port's device-mesh plan (ROADMAP
+A.11): ``shard_mesh`` and ``fleet_mesh`` raise.
+
+Planning is pure bookkeeping — importing this module never touches device
+state.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional, Sequence, Tuple
+
+import torch
+
+NO_MESH = ("device meshes wait for the port's device-mesh plan "
+           "(ROADMAP A.11)")
+
+
+def base_model_name(member: str) -> str:
+    """Strip the ``@shard`` adoption suffix: arms a shard adopts during
+    fail-over are named ``<base>@<dead-shard>`` so pool names stay unique
+    while the all-reduce still merges their statistics per base model."""
+    return member.split("@", 1)[0]
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardSpec:
+    """One engine-pool shard: a named, disjoint slice of the device set."""
+
+    index: int
+    name: str
+    device_ids: Tuple[int, ...]
+    models: Tuple[str, ...]
+
+    @property
+    def n_devices(self) -> int:
+        return len(self.device_ids)
+
+
+@dataclasses.dataclass(frozen=True)
+class FleetPlan:
+    """Shard layout (axes fixed to ("data", "model"), as in the JAX
+    package)."""
+
+    shards: Tuple[ShardSpec, ...]
+    axes: Tuple[str, str] = ("data", "model")
+
+    @property
+    def n_shards(self) -> int:
+        return len(self.shards)
+
+    def shard_mesh(self, spec: ShardSpec):
+        raise NotImplementedError(NO_MESH)
+
+    def fleet_mesh(self):
+        raise NotImplementedError(NO_MESH)
+
+
+def _device_id(d) -> int:
+    """A device's id: ``.id`` where it has one, a ``torch.device``'s index
+    (the current CUDA device for a bare "cuda")."""
+    if isinstance(d, torch.device):
+        if d.index is not None:
+            return d.index
+        return torch.cuda.current_device() if d.type == "cuda" else 0
+    return int(d.id)
+
+
+def plan_fleet(n_shards: int,
+               pool_names: Sequence[str],
+               devices: Optional[Sequence] = None) -> FleetPlan:
+    """Partition devices round-robin (``devices[i::n_shards]``) into
+    ``n_shards`` shard specs, each replicating the full ``pool_names``.
+
+    ``devices`` holds objects with an ``.id`` or ``torch.device``s; None
+    means every visible CUDA device (ids = their indices) and raises where
+    there is none — a fleet meant for the card never plans onto the CPU.
+    With fewer devices than shards (one card, many virtual shards), shards
+    share devices one-to-one by index modulo the device count — the
+    controller is a concurrency structure there, not a placement one.
+    """
+    if n_shards < 1:
+        raise ValueError(f"n_shards must be >= 1, got {n_shards}")
+    if not pool_names:
+        raise ValueError("pool_names must be non-empty")
+    if devices is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("CUDA is not available; pass devices= to "
+                               "plan a fleet elsewhere")
+        devices = [torch.device("cuda", i)
+                   for i in range(torch.cuda.device_count())]
+    ids = [_device_id(d) for d in devices]
+    shards: List[ShardSpec] = []
+    models = tuple(pool_names)
+    for i in range(n_shards):
+        mine = tuple(ids[i::n_shards]) if len(ids) >= n_shards \
+            else (ids[i % len(ids)],)
+        shards.append(ShardSpec(index=i, name=f"shard{i}",
+                                device_ids=mine, models=models))
+    return FleetPlan(shards=tuple(shards))

@@ -1,8 +1,8 @@
 """The PyTorch port stands on its own: no module of ``src/repro_torch`` and
-nothing in ``chip_smoke.py`` imports JAX or the JAX package, every port
-module imports with JAX made unimportable, and ``chip_smoke.py`` refuses to
-run without a CUDA device (or without the package beside it) before doing
-any work."""
+nothing in ``chip_smoke.py`` imports JAX, ``ml_dtypes`` or the JAX
+package, every port module imports with JAX made unimportable, and
+``chip_smoke.py`` refuses to run without a CUDA device (or without the
+package beside it) before doing any work."""
 import ast
 import os
 import shutil
@@ -33,18 +33,21 @@ def _imported_modules(path: Path):
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_reference_imports(path):
+    """Nor ``ml_dtypes``, which the card's machine lacks: bf16 goes through
+    torch (``distributed/checkpoint.py`` stores its raw bits)."""
     bad = [m for m in _imported_modules(path)
-           if m.split(".")[0] in ("jax", "jaxlib", "repro", "flax")]
+           if m.split(".")[0] in ("jax", "jaxlib", "repro", "flax",
+                                  "ml_dtypes")]
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
 def test_the_walk_covers_every_subpackage():
     """Every subpackage of the port has its modules in the import walk —
-    the energy layer (``costmodel``, ``telemetry``) and the launcher
-    among them."""
+    the energy layer (``costmodel``, ``telemetry``), the launcher, the
+    fleet and its fault and checkpoint primitives among them."""
     subpackages = {p.parent for p in PORT.rglob("__init__.py")}
     assert subpackages <= {p.parent for p in FILES}
-    for name in ("costmodel", "telemetry", "launch"):
+    for name in ("costmodel", "telemetry", "launch", "fleet", "distributed"):
         assert PORT / name in subpackages
 
 

@@ -3,7 +3,8 @@ on the same inputs: the outcome tables and their draws, the 16-model pool,
 the RouterBench table, ``SimEngine`` on an injected clock, ε-greedy (plain
 and contextual) draw for draw with the bandit key, and the replay harness
 (``run_policy``, ``drive_pool_stream``, the baselines table, the
-RouterBench sweep) decision for decision."""
+RouterBench sweep) decision for decision, LinUCB also over the paper's
+whole stream (T = 2,500)."""
 import dataclasses
 
 import pytest
@@ -273,6 +274,21 @@ def test_run_policy_identical_to_jax(name):
         np.testing.assert_array_equal(pr.policy.state_dict()["key"],
                                       jr.policy.state_dict()["key"])
         assert got.mean_decision_ms > 0.0
+
+
+def test_linucb_trace_identical_to_jax_at_the_papers_T():
+    """LinUCB over the paper's whole stream (T = 2,500), decision for
+    decision: the bandit update rounds as the JAX package's on its CPU
+    backend, so A⁻¹ and θ̂ never drift an ulp apart into a near tie."""
+    jr = jax_common.make_router()
+    pr = common.make_router(device="cpu", featurize="host")
+    want = jax_common.run_policy(jr, jax_common.stream(per_task=500),
+                                 jax_profiles.OutcomeSimulator(7), "g")
+    got = common.run_policy(pr, common.stream(per_task=500),
+                            OutcomeSimulator(7), "g")
+    np.testing.assert_array_equal(got.selection_trace, want.selection_trace)
+    assert (got.mean_accuracy, got.total_energy_wh) == (
+        want.mean_accuracy, want.total_energy_wh)
 
 
 def test_run_policy_model_addition_identical_to_jax():

@@ -2,9 +2,10 @@
 the 22 cases of ``tests/test_chaos.py`` run through both packages — each
 case asserts the reference's invariants in either package and returns
 what it observed, and the two observations must be equal — and
-``benchmarks/chaos.py``'s ``main`` at ``per_task=20`` without the fleet
-variant, whose run records (trajectories, per-arm selections, retries,
-timeouts, breaker opens) must equal the JAX package's ``bench_chaos``.
+``benchmarks/chaos.py``'s ``main`` at ``per_task=20`` with the fleet
+variant (and the variant alone at n = 24 and 80), whose run records
+(trajectories, per-arm selections, retries, timeouts, breaker opens, the
+fleet's fail-over) must equal the JAX package's ``bench_chaos``.
 
   * the circuit breaker's transitions (open at the failure rate, the
     cooldown, the probe trickle, re-close and re-open, the hook);
@@ -614,21 +615,32 @@ def test_disagg_survives_repeated_prefill_and_twin_kill_cycles(
 
 
 def test_chaos_main_matches_jax(tmp_path):
-    """``chaos.main(per_task=20)`` holds its seven invariants and writes
-    the JAX package's artifact: the calibrated storm targets, both runs'
-    records and the headline (goodput, terminal fraction, storm shares)."""
+    """``chaos.main(per_task=20)`` at both packages' defaults, the fleet
+    variant included, holds its seven invariants and writes the JAX
+    package's lines and artifact: the calibrated storm targets, the three
+    runs' records (the fleet's events and trajectory among them) and the
+    headline (goodput, terminal fraction, storm shares)."""
     want_path, got_path = tmp_path / "jax.json", tmp_path / "port.json"
-    want_lines = jax_chaos.main(per_task=20, fleet=False,
-                                artifact=str(want_path))
+    want_lines = jax_chaos.main(per_task=20, artifact=str(want_path))
     got_lines = chaos.main(per_task=20, artifact=str(got_path),
                            device="cpu")
     assert got_lines[:-1] == want_lines[:-1]      # all but the path line
+    assert got_lines[-2].startswith("fleet,80/80,0,")
     want = json.loads(want_path.read_text())
     got = json.loads(got_path.read_text())
     assert got["runs"]["reliability"]["stats"]["breaker_opens"] >= 1
     assert_close(got, want, 1e-12)
 
 
-def test_chaos_fleet_variant_waits_for_the_fleet_layer():
-    with pytest.raises(NotImplementedError, match="A.10"):
-        chaos.main(per_task=20, fleet=True, artifact=None, device="cpu")
+@pytest.mark.parametrize("n", [24, 80])
+def test_run_fleet_chaos_matches_jax(n):
+    """The fleet variant alone — three shards, shard 0's engines in the
+    storm, shard 2 killed at 40% of the arrivals — gives the JAX
+    package's record: counts, the controller's stats, the fail-over
+    event and the trajectory (floats 1e-9)."""
+    want = jax_chaos.run_fleet_chaos(n=n)
+    got = chaos.run_fleet_chaos(n=n, device="cpu")
+    assert got["completed"] + got["failed"] == got["n_queries"]
+    assert got["stats"]["failovers"] == 1
+    assert_close(json.loads(json.dumps(got)), json.loads(json.dumps(want)),
+                 1e-9)

@@ -198,19 +198,19 @@ def test_pool_server_run_matches_jax(equal_energy_constants):
 
 
 def test_unported_serving_options_raise():
-    """The fleet chaos variant waits for a later slice and raises, and a
+    """The fleet's device meshes wait for a later slice and raise, and a
     decoder-only model refuses the encoder-decoder layout (that is
     ``encdec.EncDecLM``, which ``lm.init_lm`` builds); the reliability and
     disaggregation options of ``PoolServer`` are taken."""
-    from repro_torch.benchmarks import chaos
+    from repro_torch.fleet import plan_fleet
     from repro_torch.serving import BreakerConfig
     pcfg = get_config("granite-3-8b", **F32)
     encdec_cfg = dataclasses.replace(pcfg, layout="encdec")
     with pytest.raises(ValueError, match="EncDecLM"):
         lm.DecoderLM(encdec_cfg, torch.device("cpu"))
     assert "cross_k" in lm.init_cache(encdec_cfg, 1, 128, device="cpu")
-    with pytest.raises(NotImplementedError, match="fleet"):
-        chaos.main(fleet=True, artifact=None, device="cpu")
+    with pytest.raises(NotImplementedError, match="A.11"):
+        plan_fleet(2, ["g"], devices=[torch.device("cpu")]).fleet_mesh()
     eng = ModelEngine("g", pcfg, max_len=32, device="cpu")
     twin = ModelEngine("g", pcfg, max_len=32, params=eng.params,
                        role="decode", device="cpu")

@@ -235,7 +235,19 @@ Phases, in order; any failure raises and the script exits non-zero:
      ``model_addition``, ``overhead`` and ``prefill`` at their defaults,
      ``energy_model --smoke`` (its MAE gate) at 24 queries a cell, each
      table printed and the router kernels' launches held to each
-     bench's routing calls.
+     bench's routing calls; (d) the benchmark entry points and the
+     quickstart: ``telemetry.main(smoke=True)`` at per_task 60 (the < 5%
+     telemetry overhead assertion live; its governance lines equal to the
+     JAX package's CPU record), ``cache.main(smoke=True)`` at 36 queries
+     over the served granite-3-8b (full width, ``SERVE_CUTS``; its smoke
+     assertions: >= 30% fewer joules, both hit kinds, the Prometheus
+     series, the governor's credit, the carbon deferral),
+     ``baselines.main`` and ``routerbench.main`` with ``--smoke`` at the
+     smallest closed loops their orderings hold at on the CPU, every line
+     equal to the JAX package's CPU record, ``kernels.main``'s four rows
+     within the kernel phase's tolerances, and
+     ``examples/torch_quickstart.py`` with the reference script's
+     accuracy, energy and selection counts exactly.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a result when no
@@ -497,6 +509,68 @@ LLAVA_LAYERS, LLAVA_PREFILL = 16, (1, 1024)
 GROK_LAYERS, GROK_PREFILL, GROK_REQUESTS = 2, (2, 2048), (4, 32, 16)
 GEMMA27_LAYERS = 12
 BENCH_SWEEP_PER_TASK, BENCH_RUNS, BENCH_ENERGY_QUERIES = 25, 2, 24
+# families phase (d): the benchmark entry points, with the JAX package's
+# CPU records (JAX_PLATFORMS=cpu PYTHONPATH=src:. python -c 'from
+# benchmarks import bench_telemetry as b; print(b.main(per_task=60))',
+# bench_baselines.main(per_task=30, closed_per_task=60, smoke=True,
+# artifact=None), bench_routerbench.main(n_per_task=10,
+# closed_n_per_task=20, smoke=True, artifact=None); jax 0.9.0).  The
+# closed loops are the smallest where --smoke's ordering holds on the CPU
+# (baselines: 60 a task, where 10-50 fail; RouterBench: 20, where 10-15
+# fail); the offline tables at 30 a task (T = 150) and at RouterBench's
+# least, 10 a task (its classifier fits on the table's first 90 queries)
+MAIN_TEL_PER_TASK = 60         # bench_telemetry's --smoke per_task
+TELEMETRY_JAX = [
+    'governance,ungoverned_acc,0.5403',
+    'governance,ungoverned_wh,25.555',
+    'governance,budget_wh,15.333',
+    'governance,governed_acc,0.5399',
+    'governance,governed_wh,19.964',
+    'governance,under_cap,False',
+    'governance,lambda_final,0.800',
+    'governance,lambda_adjustments,59',
+    'governance,relative_accuracy,0.9992',
+]
+MAIN_BASELINES = dict(per_task=30, closed_per_task=60)
+BASELINES_JAX = [
+    'name,mean_norm_accuracy,total_energy_wh,cumulative_regret',
+    'greenserv-linucb,0.5416,10.86,13.2',
+    'ctx-eps-greedy,0.5709,11.19,13.2',
+    'ctx-thompson,0.5726,8.13,9.6',
+    'eps-greedy-nonctx,0.5878,14.84,13.0',
+    'random,0.5354,12.63,16.3',
+    'largest (yi-34b),0.3990,29.71,43.3',
+    'smallest (qwen2.5-0.5b),0.3417,1.87,25.0',
+    'accuracy (gemma-3-27b),0.7550,46.49,25.5',
+    ('# paper targets: +22% acc / -31% energy vs random -> got +1.2% acc, '
+     '-14.0% energy'),
+    ('closed-loop-greenserv,acc=0.580,wh=9.27,completed=300/300,'
+     'cache_hits=103'),
+    ('closed-loop-random,acc=0.553,wh=11.70,completed=300/300,'
+     'cache_hits=91'),
+    'smoke,closed-loop ordering holds,acc 0.580>=0.553,wh 9.27<11.70',
+]
+MAIN_ROUTERBENCH = dict(n_per_task=10, closed_n_per_task=20)
+ROUTERBENCH_JAX = [
+    'algorithm,AIQ,peak_acc,avg_acc',
+    'greenserv-linucb,0.586,67.8%,55.6%',
+    'ctx-eps-greedy,0.494,54.4%,46.7%',
+    'thompson,0.669,73.3%,57.0%',
+    '# paper Table 1: GreenServ AIQ 0.607 / peak 75.7% / avg 71.7%',
+    'closed-loop-greenserv,acc=0.628,wh=1305.0,completed=180/180',
+    'closed-loop-random,acc=0.594,wh=1436.8,completed=180/180',
+    ('smoke,closed-loop ordering holds,acc 0.628>=0.594,'
+     'wh 1305.0<1436.8'),
+]
+MAIN_CACHE_QUERIES = 36        # bench_cache's --smoke size
+# examples/quickstart.py's printed numbers (JAX_PLATFORMS=cpu
+# PYTHONPATH=src python examples/quickstart.py; jax 0.9.0)
+QUICKSTART_JAX = {"accuracy": "0.605", "energy_wh": "31.9", "selections": {
+    "qwen2.5-0.5b": 9, "qwen2.5-1.5b": 21, "qwen2.5-3b": 50,
+    "qwen2.5-7b": 11, "qwen2.5-14b": 50, "mistral-7b": 20, "gemma-3-1b": 14,
+    "gemma-3-4b": 17, "gemma-3-12b": 84, "gemma-3-27b": 36,
+    "llama-3.1-1b": 13, "llama-3.2-3b": 80, "llama-3.1-8b": 56,
+    "phi-4-mini-4b": 22, "phi-4-14b": 12, "yi-34b": 5}}
 # the paper phase (the paper's closed loop on the 16-model pool, §6):
 PAPER_PER_TASK = 500           # T = 2,500, the paper's stream (§6.1.2)
 PAPER_TWIN_PER_TASK = 150      # T = 750: device vs host featurize
@@ -4748,28 +4822,142 @@ def bench_part(dev, tally) -> None:
             n_queries=BENCH_ENERGY_QUERIES, smoke=True, artifact=None,
             device=dev)))
     for name, routes, fn in runs:
-        reset_launches()
-        t = time.perf_counter()
-        with router_launches() as want:
-            lines = fn()
-        torch.cuda.synchronize()
-        got = read_launches()
-        if ({k: got[k] for k in want} != want
-                or bool(want["linucb"]) != routes
-                or any(v for k, v in got.items() if k not in want)):
-            raise AssertionError(f"bench {name}: launches {got}, expected "
-                                 f"{want}")
-        tally(want)
-        log("families", f"bench {name}: {time.perf_counter() - t:.2f} s, "
-            f"router launches {want}")
-        for line in lines:
-            log("families", f"  {line}")
+        held_bench(name, routes, fn, tally)
+
+
+def held_bench(name: str, routes: bool, fn, tally):
+    """Run a bench's entry point with the router kernels' launches held to
+    its routing calls (``router_launches``) and no other kernel launched;
+    tally them, log its seconds and the lines it returns; returns what
+    ``fn`` returns."""
+    reset_launches()
+    t = time.perf_counter()
+    with router_launches() as want:
+        lines = fn()
+    torch.cuda.synchronize()
+    got = read_launches()
+    if ({k: got[k] for k in want} != want
+            or bool(want["linucb"]) != routes
+            or any(v for k, v in got.items() if k not in want)):
+        raise AssertionError(f"bench {name}: launches {got}, expected "
+                             f"{want}")
+    tally(want)
+    log("families", f"bench {name}: {time.perf_counter() - t:.2f} s, "
+        f"router launches {want}")
+    for line in lines if isinstance(lines, list) else ():
+        log("families", f"  {line}")
+    return lines
+
+
+def equal_lines(what: str, got: list, want: list) -> None:
+    if got != want:
+        diff = [(g, w) for g, w in zip(got, want) if g != w]
+        raise AssertionError(f"{what}: {len(got)} lines against the JAX "
+                             f"package's {len(want)}; first differences "
+                             f"{diff[:3]}")
+
+
+def kernel_rows(dev) -> None:
+    """``benchmarks/kernels.py``'s four rows on the card, each held to the
+    kernel phase's tolerance for its kernel (flash and decode attention in
+    bf16 at one bf16 unit, flash's tensor-core route plus the bound of
+    carrying p as two bf16 parts; gating indices exact, weights
+    ``GATING_TOL``; LinUCB ``LINUCB_TOL``).  Launches made to compare a
+    kernel with its plain version: not counted."""
+    from repro_torch.benchmarks import kernels
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    t = time.perf_counter()
+    rows = kernels.run(dev)
+    for r in rows:
+        name = f"kernels.main {r['kernel']},{r['config']}"
+        if r["kernel"] in ("flash_attention", "decode_attention"):
+            out, ref = r["out"].float(), r["ref"].float()
+            rms = float(ref.pow(2).mean().sqrt())
+            limit = FLASH_BF16_REL * (ref.abs() + rms)
+            if r["kernel"] == "flash_attention" and flash_kernel.route(
+                    torch.bfloat16, r["inputs"][0].shape[-1]) == "wgmma":
+                q, k, v = (x.float() for x in r["inputs"])
+                limit += FLASH_P_REL * attention_ref(q, k, v.abs(), 512)
+            ratio = float(((out - ref).abs() / limit).max())
+            ok, what = ratio <= 1, f"{ratio:.3g} of one bf16 unit"
+        elif r["kernel"] == "moe_gating":
+            ok = (torch.equal(r["out"][1], r["ref"][1])
+                  and r["err"] <= GATING_TOL)
+            what = f"indices equal, weights within {GATING_TOL}"
+        else:
+            ok, what = r["err"] <= LINUCB_TOL, f"within {LINUCB_TOL}"
+        if not (ok and all(torch.isfinite(x).all() for x in (
+                r["out"] if isinstance(r["out"], tuple) else (r["out"],))
+                if x.is_floating_point())):
+            raise AssertionError(f"{name}: max abs err {r['err']} ({what})")
+        log("families", f"{name}: plain {r['ref_us']:.0f} us a call, max "
+            f"abs err {r['err']:.3g} ({what})")
+    del rows
+    reset_launches()
+    log("families", f"bench kernels: {time.perf_counter() - t:.2f} s")
+
+
+def main_part(dev, tally) -> None:
+    """(d) the benchmark entry points and the quickstart, every router on
+    the card with featurize "auto": telemetry (the < 5% overhead assertion
+    live, the governance lines == the JAX package's CPU record), the cache
+    bench over the served granite at full width (its smoke assertions),
+    baselines and RouterBench with ``--smoke`` (every line == the CPU
+    record), the kernel rows, the quickstart example (its numbers == the
+    reference script's)."""
+    import importlib.util
+
+    from repro_torch.benchmarks import baselines, cache, routerbench, telemetry
+
+    lines = held_bench("telemetry --smoke", True, lambda: telemetry.main(
+        per_task=MAIN_TEL_PER_TASK, smoke=True, device=dev), tally)
+    equal_lines("telemetry governance",
+                [l for l in lines if l.startswith("governance,")],
+                TELEMETRY_JAX)
+
+    granite = family_model(dev, "granite-3-8b", seed=0,
+                           **SERVE_CUTS["granite-3-8b"])
+    held_bench("cache --smoke", True, lambda: cache.main(
+        n_queries=MAIN_CACHE_QUERIES, smoke=True, artifact=None,
+        device=dev, weights={"granite-3-8b": granite}), tally)
+    del granite
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    lines = held_bench("baselines --smoke", True, lambda: baselines.main(
+        smoke=True, artifact=None, device=dev, **MAIN_BASELINES), tally)
+    equal_lines("baselines", lines, BASELINES_JAX)
+    lines = held_bench("routerbench --smoke", True, lambda: routerbench.main(
+        smoke=True, artifact=None, device=dev, **MAIN_ROUTERBENCH), tally)
+    equal_lines("routerbench", lines, ROUTERBENCH_JAX)
+
+    kernel_rows(dev)
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_quickstart", ROOT / "examples" / "torch_quickstart.py")
+    quickstart = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(quickstart)
+    out = held_bench("examples/torch_quickstart.py", True,
+                     lambda: quickstart.main([]), tally)
+    got = {"accuracy": f"{out['accuracy']:.3f}",
+           "energy_wh": f"{out['energy_wh']:.1f}",
+           "selections": out["selections"]}
+    if got != QUICKSTART_JAX:
+        raise AssertionError(f"quickstart: {got} against the reference "
+                             f"script's {QUICKSTART_JAX}")
+    log("families", f"quickstart: accuracy {got['accuracy']}, "
+        f"{got['energy_wh']} Wh, {sum(got['selections'].values())} routed "
+        f"over {len(got['selections'])} models: the reference's; "
+        f"{out['decision_ms']:.3f} ms a decision")
 
 
 def families_phase(dev) -> dict:
     """(a) whisper-medium, (b) gemma3-27b, llava-next-34b and grok-1-314b
-    at full width, (c) the paper benches; each part's models freed before
-    the next.  Returns every kernel's launches."""
+    at full width, (c) the paper benches, (d) the benchmark entry points
+    and the quickstart; each part's models freed before the next.  Returns
+    every kernel's launches."""
     launches = dict.fromkeys(_ops_modules(), 0)
 
     def tally(got):
@@ -4783,7 +4971,8 @@ def families_phase(dev) -> dict:
                                                    .values()]),
                        ("(b) llava", lambda: tally(llava_part(dev))),
                        ("(b) grok", lambda: tally(grok_part(dev))),
-                       ("(c) benches", lambda: bench_part(dev, tally))):
+                       ("(c) benches", lambda: bench_part(dev, tally)),
+                       ("(d) entry points", lambda: main_part(dev, tally))):
         t = time.perf_counter()
         part()
         gc.collect()

@@ -6,23 +6,29 @@ the router's ``route()`` loop alone over the calibrated outcome tables.
 random baseline over the 16-model paper pool — through the *full*
 serving stack on a virtual clock: ``PoolServer.enqueue`` → GreenCache
 (semantic + prefix) → ``route_batch`` with the cost-model tilt →
-energy-budget governor under a diurnal carbon signal.
+energy-budget governor under a diurnal carbon signal.  ``main`` is the
+JAX package's ``benchmarks/bench_baselines.py::main``: both drives, its
+lines, the ``--smoke`` ordering assertions through the closed loop and
+the ``BENCH_baselines.json`` artifact (``common.write_bench_artifact``).
 
-    PYTHONPATH=src python -m repro_torch.benchmarks.baselines [--per-task N]
+    PYTHONPATH=src python -m repro_torch.benchmarks.baselines [--smoke] \
+        [--per-task N] [--artifact f] [--device cpu]
 
-runs the offline rows on the card (``--device cpu`` for the CPU);
-``--rows`` picks rows (e.g. ``--rows ctx-thompson``).
+runs on the card (``--device cpu`` for the CPU); ``--rows`` prints only
+the offline table of the rows named (e.g. ``--rows ctx-thompson``), with
+each row's decision ms.
 """
 from __future__ import annotations
 
 import argparse
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
 from repro_torch.benchmarks.common import (RunResult, make_closed_loop_router,
                                            make_router, run_policy,
-                                           run_record, run_scenario, stream)
+                                           run_record, run_scenario, stream,
+                                           write_bench_artifact)
 from repro_torch.configs.pool import build_paper_pool
 from repro_torch.core.types import TaskType
 from repro_torch.data import OutcomeSimulator
@@ -115,24 +121,120 @@ def table(results: Dict[str, RunResult]) -> List[str]:
                      f"{r.total_energy_wh:.2f},{r.cumulative_regret:.1f},"
                      f"{r.mean_decision_ms:.4f}")
     if "greenserv-linucb" in results and "random" in results:
-        gs, rnd = results["greenserv-linucb"], results["random"]
-        lines.append(
-            f"# paper targets: +22% acc / -31% energy vs random -> got "
+        lines.append(paper_targets(results["greenserv-linucb"],
+                                   results["random"]))
+    return lines
+
+
+def paper_targets(gs: RunResult, rnd: RunResult) -> str:
+    """The line with GreenServ's accuracy and Wh against random beside
+    the paper's +22% / -31%."""
+    return (f"# paper targets: +22% acc / -31% energy vs random -> got "
             f"{100 * (gs.mean_accuracy / rnd.mean_accuracy - 1):+.1f}% acc, "
             f"{100 * (gs.total_energy_wh / rnd.total_energy_wh - 1):+.1f}% "
             f"energy")
+
+
+def main(per_task: int = 500, seed: int = 0,
+         artifact: Optional[str] = "BENCH_baselines.json",
+         smoke: bool = False,
+         closed_per_task: Optional[int] = None,
+         device=None) -> List[str]:
+    # ~1000 closed-loop queries (16 arms need that much feedback for the
+    # bandit to separate from random with real margin); decoupled from
+    # the offline sweep's scale
+    closed_per_task = closed_per_task or max(per_task // 5, 200)
+    results = run(per_task=per_task, seed=seed, device=device)
+    lines = ["name,mean_norm_accuracy,total_energy_wh,cumulative_regret"]
+    for name, r in results.items():
+        lines.append(f"{name},{r.mean_accuracy:.4f},"
+                     f"{r.total_energy_wh:.2f},{r.cumulative_regret:.1f}")
+    gs, rnd = results["greenserv-linucb"], results["random"]
+    lines.append(paper_targets(gs, rnd))
+    closed = run_closed_loop(per_task=closed_per_task, seed=seed,
+                             device=device)
+    cgs, crnd = closed["greenserv"], closed["random"]
+    for policy, rec in closed.items():
+        lines.append(
+            f"closed-loop-{policy},acc={rec['mean_accuracy']:.3f},"
+            f"wh={rec['total_energy_wh']:.2f},"
+            f"completed={rec['completed']}/{rec['n_queries']},"
+            f"cache_hits={rec['stats']['cache_hits']}")
+    if smoke:
+        check_closed_loop_ordering(cgs, crnd)
+        lines.append(
+            "smoke,closed-loop ordering holds,"
+            f"acc {cgs['mean_accuracy']:.3f}>={crnd['mean_accuracy']:.3f},"
+            f"wh {cgs['total_energy_wh']:.2f}<{crnd['total_energy_wh']:.2f}")
+    if artifact:
+        runs = {name: {
+            "mean_accuracy": float(r.mean_accuracy),
+            "total_energy_wh": float(r.total_energy_wh),
+            "cumulative_regret": float(r.cumulative_regret),
+            "trajectory": [
+                {"t": int(i), "cumulative_regret": float(v)}
+                for i, v in enumerate(r.regret_curve)][::max(
+                    len(r.regret_curve) // 50, 1)],
+        } for name, r in results.items()}
+        runs["closed_loop_greenserv"] = cgs
+        runs["closed_loop_random"] = crnd
+        write_bench_artifact(
+            artifact, bench="baselines", seed=seed,
+            headline={
+                "acc_gain_vs_random":
+                    gs.mean_accuracy / rnd.mean_accuracy - 1.0,
+                "energy_vs_random":
+                    gs.total_energy_wh / rnd.total_energy_wh - 1.0,
+                "closed_loop_acc_gain":
+                    cgs["mean_accuracy"] - crnd["mean_accuracy"],
+                "closed_loop_energy_ratio":
+                    cgs["total_energy_wh"]
+                    / max(crnd["total_energy_wh"], 1e-9)},
+            runs=runs)
+        lines.append(f"artifact,path,{artifact}")
     return lines
+
+
+def check_closed_loop_ordering(gs: dict, rnd: dict) -> None:
+    """``--smoke``'s paper-shaped ordering through the serving stack:
+    GreenServ answers every query, at no lower accuracy than random and
+    with fewer Wh (run records, ``common.run_record``)."""
+    if gs["completed"] != gs["n_queries"]:
+        raise AssertionError(f"closed loop lost requests: "
+                             f"{gs['completed']}/{gs['n_queries']}")
+    if not gs["mean_accuracy"] >= rnd["mean_accuracy"] - 1e-9:
+        raise AssertionError(
+            f"GreenServ accuracy {gs['mean_accuracy']:.3f} below random "
+            f"{rnd['mean_accuracy']:.3f} through the serving stack")
+    if not gs["total_energy_wh"] < rnd["total_energy_wh"]:
+        raise AssertionError(
+            f"GreenServ energy {gs['total_energy_wh']:.2f} Wh not below "
+            f"random {rnd['total_energy_wh']:.2f} Wh")
 
 
 if __name__ == "__main__":
     ap = argparse.ArgumentParser(description=__doc__)
-    ap.add_argument("--per-task", type=int, default=500,
-                    help="stream queries per task family (default 500)")
+    ap.add_argument("--per-task", type=int, default=None,
+                    help="stream queries per task family "
+                         "(default 500, or 60 with --smoke)")
+    ap.add_argument("--artifact", default="BENCH_baselines.json",
+                    help="trajectory artifact path ('' disables)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--smoke", action="store_true",
+                    help="scaled-down run asserting GreenServ >= random "
+                         "accuracy with lower Wh through the closed loop")
     ap.add_argument("--device", default=None,
                     help="the routers' device (default: the card)")
-    ap.add_argument("--rows", nargs="+", default=ROWS, metavar="ROW",
-                    help=f"rows to run (default all: {', '.join(ROWS)})")
+    ap.add_argument("--rows", nargs="+", default=None, metavar="ROW",
+                    help=f"print only the offline table of these rows "
+                         f"(of {', '.join(ROWS)})")
     args = ap.parse_args()
-    print("\n".join(table(run(per_task=args.per_task, seed=args.seed,
-                              rows=args.rows, device=args.device))))
+    per_task = args.per_task if args.per_task is not None else (
+        60 if args.smoke else 500)
+    if args.rows:
+        print("\n".join(table(run(per_task=per_task, seed=args.seed,
+                                  rows=args.rows, device=args.device))))
+    else:
+        print("\n".join(main(per_task=per_task, seed=args.seed,
+                             artifact=args.artifact or None,
+                             smoke=args.smoke, device=args.device)))

@@ -14,24 +14,29 @@ Two drives share the synthetic RouterBench table
     templated per task, and replaying a near-duplicate's cached answer
     would miscredit the per-instance table outcomes.
 
-    PYTHONPATH=src python -m repro_torch.benchmarks.routerbench [--smoke]
+``main`` is the JAX package's ``benchmarks/bench_routerbench.py::main``:
+``linucb``, ``eps_greedy_ctx`` and ``cts`` (its ``greenserv-linucb``,
+``ctx-eps-greedy`` and ``thompson`` rows), the closed loop, the
+``--smoke`` ordering assertions and the ``BENCH_routerbench.json``
+artifact, on the card (``--device cpu`` for the CPU).
 
-runs ``linucb``, ``eps_greedy_ctx`` and ``cts`` (the JAX package's
-``greenserv-linucb``, ``ctx-eps-greedy`` and ``thompson`` rows) and the
-closed loop on the card (``--device cpu`` for the CPU).
+    PYTHONPATH=src python -m repro_torch.benchmarks.routerbench [--smoke] \
+        [--per-task N] [--artifact f] [--device cpu]
 """
 from __future__ import annotations
 
 import argparse
-from typing import Dict
+from typing import Dict, List, Optional
 
 import numpy as np
 
 from repro_torch.core.pool import ModelPool
 from repro_torch.core.router import GreenServRouter
 from repro_torch.core.types import Feedback, ModelProfile, Query, RouterConfig
+from repro_torch.benchmarks.baselines import check_closed_loop_ordering
 from repro_torch.benchmarks.common import (make_closed_loop_router,
-                                           run_record, run_scenario)
+                                           run_record, run_scenario,
+                                           write_bench_artifact)
 from repro_torch.data.routerbench import (RouterBenchTable, aiq, build_table,
                                           query_text)
 from repro_torch.data.scenarios import Scenario, poisson_arrivals
@@ -158,28 +163,74 @@ def run_closed_loop(n_per_task: int = 150, seed: int = 0, lam: float = 0.1,
     return out
 
 
+def main(n_per_task: int = 150, seed: int = 0,
+         artifact: Optional[str] = "BENCH_routerbench.json",
+         smoke: bool = False,
+         closed_n_per_task: Optional[int] = None,
+         device=None) -> List[str]:
+    # the closed loop needs ~900 queries for the bandit to separate from
+    # random with real margin; the offline sweep converges much earlier,
+    # so the two scales decouple (smoke: small sweep, full-size loop)
+    closed_n_per_task = closed_n_per_task or max(n_per_task, 100)
+    lines = ["algorithm,AIQ,peak_acc,avg_acc"]
+    runs: Dict[str, dict] = {}
+    for algo in ALGORITHMS:
+        name = ROW_NAMES[algo]
+        r = run_algorithm(algo, n_per_task=n_per_task, seed=seed,
+                          device=device)
+        runs[name] = r
+        lines.append(f"{name},{r['aiq']:.3f},{100 * r['peak_acc']:.1f}%,"
+                     f"{100 * r['avg_acc']:.1f}%")
+    lines.append("# paper Table 1: GreenServ AIQ 0.607 / peak 75.7% / "
+                 "avg 71.7%")
+    closed = run_closed_loop(n_per_task=closed_n_per_task, seed=seed,
+                             device=device)
+    for policy, rec in closed.items():
+        runs[f"closed_loop_{policy}"] = rec
+        lines.append(
+            f"closed-loop-{policy},acc={rec['mean_accuracy']:.3f},"
+            f"wh={rec['total_energy_wh']:.1f},"
+            f"completed={rec['completed']}/{rec['n_queries']}")
+    gs, rnd = closed["greenserv"], closed["random"]
+    if smoke:
+        check_closed_loop_ordering(gs, rnd)
+        lines.append(
+            "smoke,closed-loop ordering holds,"
+            f"acc {gs['mean_accuracy']:.3f}>={rnd['mean_accuracy']:.3f},"
+            f"wh {gs['total_energy_wh']:.1f}<{rnd['total_energy_wh']:.1f}")
+    if artifact:
+        gsrun = runs["greenserv-linucb"]
+        write_bench_artifact(
+            artifact, bench="routerbench", seed=seed,
+            headline={"greenserv_aiq": gsrun["aiq"],
+                      "greenserv_peak_acc": gsrun["peak_acc"],
+                      "greenserv_avg_acc": gsrun["avg_acc"],
+                      "closed_loop_acc_gain":
+                          gs["mean_accuracy"] - rnd["mean_accuracy"],
+                      "closed_loop_energy_ratio":
+                          gs["total_energy_wh"]
+                          / max(rnd["total_energy_wh"], 1e-9)},
+            runs=runs)
+        lines.append(f"artifact,path,{artifact}")
+    return lines
+
+
 if __name__ == "__main__":
     ap = argparse.ArgumentParser(description=__doc__)
-    ap.add_argument("--n-per-task", type=int, default=None,
-                    help="table queries per task family "
+    ap.add_argument("--per-task", type=int, default=None,
+                    help="RouterBench queries per task family "
                          "(default 150, or 40 with --smoke)")
-    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--artifact", default="BENCH_routerbench.json",
+                    help="trajectory artifact path ('' disables)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--smoke", action="store_true",
+                    help="scaled-down run asserting GreenServ >= random "
+                         "accuracy with lower Wh through the closed loop")
     ap.add_argument("--device", default=None,
                     help="the routers' device (default: the card)")
     args = ap.parse_args()
-    n = args.n_per_task or (40 if args.smoke else 150)
-    print("algorithm,aiq,peak_acc,avg_acc  (paper: 0.607, 0.757, 0.717)")
-    for algo in ALGORITHMS:
-        r = run_algorithm(algo, n_per_task=n, seed=args.seed,
-                          device=args.device)
-        print(f"{ROW_NAMES[algo]},{r['aiq']:.4f},{r['peak_acc']:.4f},"
-              f"{r['avg_acc']:.4f}")
-    # the closed loop needs ~900 queries for the bandit to separate from
-    # random; the offline sweep converges much earlier
-    for policy, rec in run_closed_loop(n_per_task=max(n, 100),
-                                       seed=args.seed,
-                                       device=args.device).items():
-        print(f"closed-loop-{policy},acc={rec['mean_accuracy']:.3f},"
-              f"wh={rec['total_energy_wh']:.1f},"
-              f"completed={rec['completed']}/{rec['n_queries']}")
+    per_task = args.per_task if args.per_task is not None else (
+        40 if args.smoke else 150)
+    print("\n".join(main(n_per_task=per_task, seed=args.seed,
+                         artifact=args.artifact or None, smoke=args.smoke,
+                         device=args.device)))

@@ -34,7 +34,7 @@ into the PowerTrace, and feeds the governor's phase ledger.
 from __future__ import annotations
 
 import time
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Tuple
 
 from repro_torch.telemetry import events as ev
 from repro_torch.telemetry.budget import EnergyBudgetGovernor
@@ -77,6 +77,10 @@ class Telemetry:
         self._pred_err = r.histogram(
             "greenserv_energy_prediction_error_ratio",
             help="abs(metered-predicted)/metered Wh per completion")
+        # every histogram the hooks record into: on_step folds their
+        # pending observations into the quantile estimators
+        self._histograms = [self._latency, self._ttft, self._queue_wait,
+                            self._pred_err]
         # reliability layer (docs/RELIABILITY.md): pre-bound so the
         # counters export at zero on healthy runs
         self._retries = r.counter(
@@ -95,10 +99,9 @@ class Telemetry:
             "greenserv_breaker_transitions_total",
             help="circuit-breaker state changes across all arms")
         # per-model/per-engine handles, bound lazily on first use
-        self._completed: Dict[str, Counter] = {}
-        self._energy_per_tok: Dict[str, Histogram] = {}
-        self._energy_total: Dict[str, Counter] = {}
-        self._tokens: Dict[tuple, Counter] = {}
+        # (completed, energy per token, energy mWh, tokens in, tokens out)
+        self._model_handles: Dict[str, Tuple[Counter, Histogram, Counter,
+                                             Counter, Counter]] = {}
         self._restarts: Dict[str, Counter] = {}
         self._queue_gauges: Dict[str, object] = {}
         self._power_gauges: Dict[str, object] = {}
@@ -211,31 +214,33 @@ class Telemetry:
         sample against the metered ``resp.energy_wh``."""
         t = self.clock()
         model = resp.model_name
-        c = self._completed.get(model)
-        if c is None:
+        handles = self._model_handles.get(model)
+        if handles is None:
             r, lbl = self.registry, {"model": model}
-            c = self._completed[model] = r.counter(
-                "greenserv_completed_total", lbl)
-            self._energy_per_tok[model] = r.histogram(
-                "greenserv_energy_per_token_mwh", lbl)
-            self._energy_total[model] = r.counter(
-                "greenserv_energy_mwh_total", lbl)
-            self._tokens[(model, "in")] = r.counter(
-                "greenserv_tokens_total", {"model": model, "dir": "in"})
-            self._tokens[(model, "out")] = r.counter(
-                "greenserv_tokens_total", {"model": model, "dir": "out"})
-        c.inc()
+            # created in the JAX package's order: the registry exports in
+            # creation order
+            completed = r.counter("greenserv_completed_total", lbl)
+            per_tok = r.histogram("greenserv_energy_per_token_mwh", lbl)
+            self._histograms.append(per_tok)
+            handles = self._model_handles[model] = (
+                completed, per_tok,
+                r.counter("greenserv_energy_mwh_total", lbl),
+                r.counter("greenserv_tokens_total",
+                          {"model": model, "dir": "in"}),
+                r.counter("greenserv_tokens_total",
+                          {"model": model, "dir": "out"}))
+        completed, per_tok, energy_total, tokens_in, tokens_out = handles
+        completed.inc()
         self._latency.record(resp.latency_ms)
         ttft = resp.ttft_ms
         if ttft:
             self._ttft.record(ttft)
         self._queue_wait.record(resp.queue_ms)
-        self._energy_total[model].inc(resp.energy_wh * 1e3)
-        self._tokens[(model, "in")].inc(resp.input_tokens)
-        self._tokens[(model, "out")].inc(resp.output_tokens)
+        energy_total.inc(resp.energy_wh * 1e3)
+        tokens_in.inc(resp.input_tokens)
+        tokens_out.inc(resp.output_tokens)
         if resp.output_tokens > 0:
-            self._energy_per_tok[model].record(
-                resp.energy_wh * 1e3 / resp.output_tokens)
+            per_tok.record(resp.energy_wh * 1e3 / resp.output_tokens)
         self.events.emit(ev.COMPLETE, t, uid=resp.uid, model=model,
                          latency_ms=resp.latency_ms,
                          energy_wh=resp.energy_wh, accuracy=accuracy)
@@ -338,34 +343,39 @@ class Telemetry:
         and one governor control step."""
         t = self.clock()
         joules = {}
-        phase_tot = {"prefill": 0.0, "decode": 0.0}
+        pre_tot = dec_tot = 0.0
         prefix_avoided = 0.0
         prefix_hits = 0
+        last = self._engine_joules_last
         for name, eng in engines.items():
             phases = eng.cumulative_joules_by_phase()
-            joules[name] = phases.get("prefill", 0.0) + phases.get(
-                "decode", 0.0)
-            phase_tot["prefill"] += phases.get("prefill", 0.0)
-            phase_tot["decode"] += phases.get("decode", 0.0)
+            pre, dec = phases.get("prefill", 0.0), phases.get("decode", 0.0)
+            j = joules[name] = pre + dec
+            pre_tot += pre
+            dec_tot += dec
             # role attribution: the same joules, keyed by which *class* of
             # engine burned them (all-unified pools book under "unified")
-            role = getattr(eng, "role", "unified")
-            d_role = joules[name] - self._engine_joules_last.get(name, 0.0)
+            d_role = j - last.get(name, 0.0)
             if d_role > 0.0:
-                self._role_energy.setdefault(
-                    role, self.registry.counter(
+                role = getattr(eng, "role", "unified")
+                counter = self._role_energy.get(role)
+                if counter is None:
+                    counter = self._role_energy[role] = self.registry.counter(
                         "greenserv_energy_joules_total", {"role": role},
                         help="pool-wide metered joules by engine role")
-                ).inc(d_role)
+                counter.inc(d_role)
                 if self.governor is not None:
                     self.governor.on_role_energy(role,
                                                  d_role / JOULES_PER_WH)
-            self._engine_joules_last[name] = joules[name]
+            last[name] = j
             # getattr: duck-typed engines (tests, adapters) may predate
             # the avoided-energy surface
-            prefix_avoided += getattr(eng, "cumulative_joules_avoided",
-                                      lambda: 0.0)()
-            prefix_hits += getattr(eng, "prefix_hit_count", lambda: 0)()
+            avoided = getattr(eng, "cumulative_joules_avoided", None)
+            if avoided is not None:
+                prefix_avoided += avoided()
+            hits = getattr(eng, "prefix_hit_count", None)
+            if hits is not None:
+                prefix_hits += hits()
             qg = self._queue_gauges.get(name)
             if qg is None:
                 qg = self._queue_gauges[name] = self.registry.gauge(
@@ -373,6 +383,9 @@ class Telemetry:
                 self._power_gauges[name] = self.registry.gauge(
                     "greenserv_power_watts", {"source": name})
             qg.set(eng.pending)
+        phase_tot = {"prefill": pre_tot, "decode": dec_tot}
+        for hist in self._histograms:
+            hist.flush()
         self.power.sample_all(t, joules, phase_joules=phase_tot)
         # prefix-KV avoided energy is metered inside the engines; diff the
         # cumulative counters once per step (exactly like phase joules)
@@ -395,13 +408,12 @@ class Telemetry:
             if deltas[ph]:
                 self._phase_energy[ph].inc(deltas[ph])
             self._phase_last[ph] = cur
+        last_watts = self.power.last_watts
         for name, pg in self._power_gauges.items():
-            pg.set(self.power.last_watts(name))
-        self._pool_power_gauge.set(self.power.last_watts(POOL))
-        self._phase_power_gauges["prefill"].set(
-            self.power.last_watts(PHASE_PREFILL))
-        self._phase_power_gauges["decode"].set(
-            self.power.last_watts(PHASE_DECODE))
+            pg.set(last_watts(name))
+        self._pool_power_gauge.set(last_watts(POOL))
+        self._phase_power_gauges["prefill"].set(last_watts(PHASE_PREFILL))
+        self._phase_power_gauges["decode"].set(last_watts(PHASE_DECODE))
         if self.governor is not None and (deltas["prefill"]
                                           or deltas["decode"]):
             self.governor.on_phase_energy(deltas["prefill"] / JOULES_PER_WH,
@@ -456,12 +468,12 @@ class Telemetry:
                 f"(prefix {pj * mwh:.4g} / semantic {sj * mwh:.4g})   "
                 f"hits prefix {int(self._cache_hits['prefix'].value)} / "
                 f"semantic {int(self._cache_hits['semantic'].value)}")
-        for model in sorted(self._energy_per_tok):
-            h = self._energy_per_tok[model]
+        for model in sorted(self._model_handles):
+            completed, h = self._model_handles[model][:2]
             if h.count:
                 lines.append(
                     f"    {model:20s} {h.mean:8.3f} mWh/token "
-                    f"({int(self._completed[model].value)} completions)")
+                    f"({int(completed.value)} completions)")
         if self.governor is not None:
             g = self.governor.stats()
             lines.append(

@@ -5,7 +5,9 @@ Designed for the serving hot path — every ``record`` is O(1):
   * ``Counter`` / ``Gauge``   — a float plus bookkeeping, nothing else;
   * ``Histogram``             — count/sum/min/max plus P² streaming quantile
     estimators (Jain & Chlamtáč 1985) for p50/p95/p99, so latency
-    percentiles never require storing or sorting samples;
+    percentiles never require storing or sorting samples; the estimators
+    take the observations in batches (at most ``PENDING_MAX`` held), each
+    one folded in by the time anything reads a quantile;
   * ``MetricsRegistry``       — get-or-create by (name, labels); iteration
     order is stable for deterministic export.
 
@@ -22,6 +24,7 @@ from typing import Dict, Iterable, List, Optional, Tuple
 LabelItems = Tuple[Tuple[str, str], ...]
 
 DEFAULT_QUANTILES = (0.5, 0.95, 0.99)
+PENDING_MAX = 1024      # observations a histogram holds before it folds them
 
 
 def _label_items(labels: Dict[str, str]) -> LabelItems:
@@ -60,6 +63,22 @@ class Gauge:
         self.n_sets += 1
 
 
+def _p2_move(h_lo: float, h_i: float, h_hi: float, p_lo: float, p_i: float,
+             p_hi: float, d: float) -> float:
+    """An interior marker's new height for a move of ``d`` = ±1: the
+    piecewise-parabolic (P²) prediction, or the linear one toward the
+    neighbour in the direction of the move when the parabola leaves the
+    neighbours' bracket."""
+    cand = h_i + d / (p_hi - p_lo) * (
+        (p_i - p_lo + d) * (h_hi - h_i) / (p_hi - p_i)
+        + (p_hi - p_i - d) * (h_i - h_lo) / (p_i - p_lo))
+    if h_lo < cand < h_hi:
+        return cand
+    if d > 0:
+        return h_i + d * (h_hi - h_i) / (p_hi - p_i)
+    return h_i + d * (h_lo - h_i) / (p_lo - p_i)
+
+
 class P2Quantile:
     """P² single-quantile estimator: O(1) update, O(1) memory (5 markers).
 
@@ -69,7 +88,7 @@ class P2Quantile:
     few percent on smooth distributions — plenty for serving dashboards.
     """
 
-    __slots__ = ("q", "n", "heights", "positions", "_d0", "_inc")
+    __slots__ = ("q", "n", "heights", "positions", "_coef")
 
     def __init__(self, q: float):
         if not 0.0 < q < 1.0:
@@ -78,61 +97,75 @@ class P2Quantile:
         self.n = 0
         self.heights: List[float] = []
         self.positions = [1.0, 2.0, 3.0, 4.0, 5.0]
-        # desired marker positions are affine in the post-seed count, so
-        # they are computed on demand instead of stored and incremented —
-        # update() runs per request on the serving hot path
-        self._d0 = (1.0, 1.0 + 2.0 * q, 1.0 + 4.0 * q, 3.0 + 2.0 * q, 5.0)
-        self._inc = (0.0, q / 2.0, q, (1.0 + q) / 2.0, 1.0)
+        # desired positions of the interior markers are affine in the
+        # post-seed count, so they are computed on demand instead of stored
+        # and incremented: their intercepts, then their slopes
+        self._coef = (1.0 + 2.0 * q, 1.0 + 4.0 * q, 3.0 + 2.0 * q,
+                      q / 2.0, q, (1.0 + q) / 2.0)
 
     def update(self, x: float) -> None:
-        x = float(x)
+        self.update_many((x,))
+
+    def update_many(self, xs: Iterable[float]) -> None:
+        """``update`` with each of ``xs`` in order.  The JAX package's
+        update, with the markers held in local variables and the interior
+        loop unrolled: the same comparisons and the same float operations
+        in the same order, so the markers are bit-equal to it
+        (tests/test_torch_telemetry.py), at about half its cost an
+        observation over a batch — ``Histogram`` folds its observations
+        in batches, once a scheduler step (``Telemetry.on_step``)."""
         h = self.heights
-        self.n += 1
-        if self.n <= 5:
-            h.append(x)
+        xs = iter(xs)
+        while self.n < 5:
+            x = next(xs, None)
+            if x is None:
+                return
+            self.n += 1
+            h.append(float(x))
             h.sort()
-            return
-        pos = self.positions
-        if x < h[0]:
-            h[0] = x
-            k = 0
-        elif x >= h[4]:
-            h[4] = x
-            k = 3
-        elif x < h[1]:
-            k = 0
-        elif x < h[2]:
-            k = 1
-        elif x < h[3]:
-            k = 2
-        else:
-            k = 3
-        for i in range(k + 1, 5):
-            pos[i] += 1.0
-        # adjust interior markers toward their desired positions
-        m = float(self.n - 5)
-        d0, inc = self._d0, self._inc
-        for i in (1, 2, 3):
-            d = d0[i] + inc[i] * m - pos[i]
-            if ((d >= 1.0 and pos[i + 1] - pos[i] > 1.0)
-                    or (d <= -1.0 and pos[i - 1] - pos[i] < -1.0)):
+        p = self.positions
+        h0, h1, h2, h3, h4 = h
+        p0, p1, p2, p3, p4 = p
+        a1, a2, a3, b1, b2, b3 = self._coef
+        n = self.n
+        for x in xs:
+            x = float(x)
+            n += 1
+            # the cell x falls in: every marker above it moves up a place
+            if x < h1:
+                if x < h0:
+                    h0 = x
+                p1 += 1.0
+                p2 += 1.0
+                p3 += 1.0
+            elif x < h2:
+                p2 += 1.0
+                p3 += 1.0
+            elif x < h3:
+                p3 += 1.0
+            elif x >= h4:
+                h4 = x
+            p4 += 1.0
+            # adjust interior markers toward their desired positions
+            m = float(n - 5)
+            d = a1 + b1 * m - p1
+            if (d >= 1.0 and p2 - p1 > 1.0) or (d <= -1.0 and p0 - p1 < -1.0):
                 d = 1.0 if d >= 1.0 else -1.0
-                cand = self._parabolic(i, d)
-                if not h[i - 1] < cand < h[i + 1]:
-                    cand = self._linear(i, d)
-                h[i] = cand
-                pos[i] += d
-
-    def _parabolic(self, i: int, d: float) -> float:
-        h, p = self.heights, self.positions
-        return h[i] + d / (p[i + 1] - p[i - 1]) * (
-            (p[i] - p[i - 1] + d) * (h[i + 1] - h[i]) / (p[i + 1] - p[i])
-            + (p[i + 1] - p[i] - d) * (h[i] - h[i - 1]) / (p[i] - p[i - 1]))
-
-    def _linear(self, i: int, d: float) -> float:
-        h, p = self.heights, self.positions
-        j = i + int(d)
-        return h[i] + d * (h[j] - h[i]) / (p[j] - p[i])
+                h1 = _p2_move(h0, h1, h2, p0, p1, p2, d)
+                p1 += d
+            d = a2 + b2 * m - p2
+            if (d >= 1.0 and p3 - p2 > 1.0) or (d <= -1.0 and p1 - p2 < -1.0):
+                d = 1.0 if d >= 1.0 else -1.0
+                h2 = _p2_move(h1, h2, h3, p1, p2, p3, d)
+                p2 += d
+            d = a3 + b3 * m - p3
+            if (d >= 1.0 and p4 - p3 > 1.0) or (d <= -1.0 and p2 - p3 < -1.0):
+                d = 1.0 if d >= 1.0 else -1.0
+                h3 = _p2_move(h2, h3, h4, p2, p3, p4, d)
+                p3 += d
+        self.n = n
+        h[:] = (h0, h1, h2, h3, h4)
+        p[:] = (p0, p1, p2, p3, p4)
 
     @property
     def value(self) -> float:
@@ -160,9 +193,12 @@ class Histogram:
         self.min = float("inf")
         self.max = float("-inf")
         self._estimators = {q: P2Quantile(q) for q in quantiles}
-        self._est_seq = tuple(self._estimators.values())
+        self._pending: List[float] = []
 
     def record(self, v: float) -> None:
+        """count/sum/min/max at once; the quantile estimators take ``v`` at
+        the next ``flush`` (a reader's, or the telemetry hub's once a
+        scheduler step), in the order recorded."""
         v = float(v)
         self.count += 1
         self.sum += v
@@ -170,14 +206,26 @@ class Histogram:
             self.min = v
         if v > self.max:
             self.max = v
-        for est in self._est_seq:
-            est.update(v)
+        pending = self._pending
+        pending.append(v)
+        if len(pending) >= PENDING_MAX:
+            self.flush()
+
+    def flush(self) -> None:
+        """Fold the observations recorded since the last flush into the
+        quantile estimators."""
+        if self._pending:
+            xs, self._pending = self._pending, []
+            for est in self._estimators.values():
+                est.update_many(xs)
 
     def quantile(self, q: float) -> float:
+        self.flush()
         return self._estimators[q].value
 
     @property
     def quantiles(self) -> Dict[float, float]:
+        self.flush()
         return {q: est.value for q, est in self._estimators.items()}
 
     @property

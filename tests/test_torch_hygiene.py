@@ -1,6 +1,7 @@
-"""The PyTorch port stands on its own: no module of ``src/repro_torch`` and
-nothing in ``chip_smoke.py`` imports JAX, ``ml_dtypes`` or the JAX
-package, every port module imports with JAX made unimportable, and
+"""The PyTorch port stands on its own: no module of ``src/repro_torch``,
+no example twin (``examples/torch_*.py``) and nothing in
+``chip_smoke.py`` imports JAX, ``ml_dtypes``, the JAX package or its
+``benchmarks``, every port module imports with JAX made unimportable, and
 ``chip_smoke.py`` refuses to run without a CUDA device (or without the
 package beside it) before doing any work."""
 import ast
@@ -18,7 +19,8 @@ pytestmark = pytest.mark.port
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FILES = (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+         + sorted((ROOT / "examples").glob("torch_*.py")))
 
 
 def _imported_modules(path: Path):
@@ -37,7 +39,7 @@ def test_no_jax_or_reference_imports(path):
     torch (``distributed/checkpoint.py`` stores its raw bits)."""
     bad = [m for m in _imported_modules(path)
            if m.split(".")[0] in ("jax", "jaxlib", "repro", "flax",
-                                  "ml_dtypes")]
+                                  "ml_dtypes", "benchmarks")]
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 

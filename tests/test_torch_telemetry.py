@@ -150,6 +150,38 @@ def test_p2_quantile_approximates_numpy():
     assert got == want
 
 
+@pytest.mark.parametrize("dist", ["lognormal", "ties", "constant"])
+def test_p2_batched_updates_equal_jax(dist):
+    """The port folds a histogram's observations into its estimators in
+    batches (``P2Quantile.update_many``, once a scheduler step): over
+    batches of every size from 0 to 40, with ties and a constant stream,
+    the markers equal the JAX package's one-at-a-time updates bit for
+    bit, and so does a histogram's export read mid-stream."""
+    rng = np.random.default_rng(3)
+    data = {"lognormal": rng.lognormal(3.0, 0.7, size=4000),
+            "ties": rng.integers(0, 4, size=4000).astype(float),
+            "constant": np.full(400, 7.0)}[dist]
+    for q in (0.1, 0.5, 0.95, 0.99):
+        want, got = JAX.tel.P2Quantile(q), PORT.tel.P2Quantile(q)
+        for x in data:
+            want.update(x)
+        i = 0
+        while i < len(data):
+            n = int(rng.integers(0, 41))
+            got.update_many(data[i:i + n])
+            i += n
+        assert (got.n, got.heights, got.positions) == (
+            want.n, want.heights, want.positions)
+    regs = [ns.tel.MetricsRegistry() for ns in (JAX, PORT)]
+    hists = [r.histogram("latency_ms") for r in regs]
+    for i, x in enumerate(data[:1500]):
+        for h in hists:
+            h.record(x)
+        if i % 97 == 0:
+            assert hists[1].quantiles == hists[0].quantiles
+    assert PORT.tel.to_prometheus(regs[1]) == JAX.tel.to_prometheus(regs[0])
+
+
 def _histogram(ns):
     r = ns.tel.MetricsRegistry()
     h = r.histogram("latency_ms")

@@ -3,7 +3,9 @@ GreenServ router with continuous batching, hedging, and a mid-run model
 addition — the paper's online deployment (§4.4) in one script.  The
 PyTorch package's twin of ``examples/serve_pool.py``: the same flags and
 lines, plus ``--device`` (the engines' and router's device; default: the
-card).
+card).  On the card the smoke configs set ``use_pallas``, the port's
+kernel switch: qwen2-moe's top-k gate runs through the hand-written
+gating kernel.
 
     PYTHONPATH=src python examples/torch_serve_pool.py [--queries 40] \
         [--device cpu]
@@ -28,6 +30,7 @@ from repro_torch.core.router import GreenServRouter
 from repro_torch.core.types import RouterConfig
 from repro_torch.data import stream as stream_lib
 from repro_torch.data import tokenizer as tok
+from repro_torch.device import resolve_device
 from repro_torch.launch.serve import exact_match_accuracy
 from repro_torch.serving import ModelEngine, PoolServer
 
@@ -42,8 +45,10 @@ def engine(arch, seed, weights, device, prefill_chunk=1, **cfg_kw):
     if arch in weights:
         model, cfg = weights[arch]
     else:
+        on_card = resolve_device(device).type == "cuda"
         model, cfg = None, get_config(arch, smoke=True,
-                                      vocab_size=tok.VOCAB_SIZE, **cfg_kw)
+                                      vocab_size=tok.VOCAB_SIZE,
+                                      use_pallas=on_card, **cfg_kw)
     return ModelEngine(arch, cfg, seed, max_batch=4, max_len=MAX_LEN,
                        params=model, detokenize=tok.decode,
                        prefill_chunk=prefill_chunk, device=device)

@@ -77,10 +77,6 @@ class Telemetry:
         self._pred_err = r.histogram(
             "greenserv_energy_prediction_error_ratio",
             help="abs(metered-predicted)/metered Wh per completion")
-        # every histogram the hooks record into: on_step folds their
-        # pending observations into the quantile estimators
-        self._histograms = [self._latency, self._ttft, self._queue_wait,
-                            self._pred_err]
         # reliability layer (docs/RELIABILITY.md): pre-bound so the
         # counters export at zero on healthy runs
         self._retries = r.counter(
@@ -221,7 +217,6 @@ class Telemetry:
             # creation order
             completed = r.counter("greenserv_completed_total", lbl)
             per_tok = r.histogram("greenserv_energy_per_token_mwh", lbl)
-            self._histograms.append(per_tok)
             handles = self._model_handles[model] = (
                 completed, per_tok,
                 r.counter("greenserv_energy_mwh_total", lbl),
@@ -384,8 +379,9 @@ class Telemetry:
                     "greenserv_power_watts", {"source": name})
             qg.set(eng.pending)
         phase_tot = {"prefill": pre_tot, "decode": dec_tot}
-        for hist in self._histograms:
-            hist.flush()
+        # the histograms' observations of this step into their quantile
+        # estimators, inside the hook (so a step's telemetry cost is here)
+        self.registry.flush()
         self.power.sample_all(t, joules, phase_joules=phase_tot)
         # prefix-KV avoided energy is metered inside the engines; diff the
         # cumulative counters once per step (exactly like phase joules)

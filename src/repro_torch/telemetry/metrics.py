@@ -9,7 +9,9 @@ Designed for the serving hot path — every ``record`` is O(1):
     take the observations in batches (at most ``PENDING_MAX`` held), each
     one folded in by the time anything reads a quantile;
   * ``MetricsRegistry``       — get-or-create by (name, labels); iteration
-    order is stable for deterministic export.
+    order is stable for deterministic export; ``flush`` folds every
+    histogram's pending observations (the telemetry hub's, once a
+    scheduler step).
 
 Energy-per-token is a first-class serving metric (Wilhelm et al.,
 arXiv:2603.20224): the registry conventions below (``greenserv_*`` names,
@@ -197,8 +199,8 @@ class Histogram:
 
     def record(self, v: float) -> None:
         """count/sum/min/max at once; the quantile estimators take ``v`` at
-        the next ``flush`` (a reader's, or the telemetry hub's once a
-        scheduler step), in the order recorded."""
+        the next ``flush`` (a reader's, or the registry's once a scheduler
+        step), in the order recorded."""
         v = float(v)
         self.count += 1
         self.sum += v
@@ -238,6 +240,7 @@ class MetricsRegistry:
 
     def __init__(self):
         self._metrics: Dict[Tuple[str, LabelItems], object] = {}
+        self._histograms: List[Histogram] = []
 
     def _get(self, cls, name: str, labels: Optional[Dict[str, str]],
              help: str, **kwargs):
@@ -246,6 +249,8 @@ class MetricsRegistry:
         if m is None:
             m = cls(name=name, labels=key[1], help=help, **kwargs)
             self._metrics[key] = m
+            if cls is Histogram:
+                self._histograms.append(m)
         elif not isinstance(m, cls):
             raise TypeError(f"metric {name!r} already registered as "
                             f"{type(m).__name__}, requested {cls.__name__}")
@@ -264,6 +269,12 @@ class MetricsRegistry:
                   quantiles: Tuple[float, ...] = DEFAULT_QUANTILES
                   ) -> Histogram:
         return self._get(Histogram, name, labels, help, quantiles=quantiles)
+
+    def flush(self) -> None:
+        """Fold every histogram's pending observations into its quantile
+        estimators."""
+        for h in self._histograms:
+            h.flush()
 
     def __iter__(self) -> Iterable:
         # stable order: by name then labels, for deterministic export

@@ -20,7 +20,7 @@ like any other source).
 from __future__ import annotations
 
 from collections import deque
-from typing import Deque, Dict, Iterable, List, NamedTuple, Optional
+from typing import Deque, Dict, Iterable, List, NamedTuple, Optional, Tuple
 
 from repro_torch.core.energy import JOULES_PER_WH
 
@@ -38,21 +38,6 @@ class PowerSample(NamedTuple):
     joules_cum: float           # cumulative joules at sample time
 
 
-class _Source:
-    """One source's running state: its samples, the last sample's time and
-    cumulative joules, the peak watts, the joules over the samples and the
-    anchor time."""
-
-    __slots__ = ("samples", "t", "j", "peak", "joules", "t0")
-
-    def __init__(self, t_s: float, joules_cum: float, maxlen: int):
-        self.samples: Deque[PowerSample] = deque(maxlen=maxlen)
-        self.t = self.t0 = t_s
-        self.j = joules_cum
-        self.peak = 0.0
-        self.joules = 0.0
-
-
 class PowerTrace:
     """Ring-buffered watts series per source plus pool-wide aggregate.
 
@@ -63,25 +48,38 @@ class PowerTrace:
 
     def __init__(self, maxlen: int = 4096):
         self.maxlen = maxlen
-        self._sources: Dict[str, _Source] = {}
+        self._series: Dict[str, Deque[PowerSample]] = {}
+        self._last: Dict[str, Tuple[float, float]] = {}   # name -> (t, J)
+        self._peak: Dict[str, float] = {}
+        self._joules: Dict[str, float] = {}
+        self._t0: Dict[str, float] = {}
+        self._t_last: Dict[str, float] = {}
 
     def sample(self, name: str, t_s: float, joules_cum: float) -> None:
-        src = self._sources.get(name)
-        if src is None:
+        last = self._last.get(name)
+        if last is None:
             # first observation anchors the series, no rate yet
-            self._sources[name] = _Source(t_s, joules_cum, self.maxlen)
+            self._last[name] = (t_s, joules_cum)
+            self._t0[name] = t_s
+            self._t_last[name] = t_s
+            self._series[name] = deque(maxlen=self.maxlen)
+            self._peak[name] = 0.0
+            self._joules[name] = 0.0
             return
-        dt = t_s - src.t
+        t_prev, j_prev = last
+        dt = t_s - t_prev
+        dj = joules_cum - j_prev
         if dt <= 0.0:
             # clock did not advance; accumulate into the next interval
+            self._last[name] = (t_prev, j_prev)
             return
-        dj = max(joules_cum - src.j, 0.0)
-        watts = dj / dt
-        src.samples.append(PowerSample(t_s, watts, joules_cum))
-        src.t, src.j = t_s, joules_cum
-        src.joules += dj
-        if watts > src.peak:
-            src.peak = watts
+        watts = max(dj, 0.0) / dt
+        self._series[name].append(PowerSample(t_s, watts, joules_cum))
+        self._last[name] = (t_s, joules_cum)
+        self._t_last[name] = t_s
+        self._joules[name] += max(dj, 0.0)
+        if watts > self._peak[name]:
+            self._peak[name] = watts
 
     def sample_all(self, t_s: float, joules_by_source: Dict[str, float],
                    phase_joules: Optional[Dict[str, float]] = None) -> None:
@@ -106,33 +104,30 @@ class PowerTrace:
     @property
     def sources(self) -> List[str]:
         """Engine source names (reserved pool/phase aggregates excluded)."""
-        return [n for n in self._sources if n not in _RESERVED]
+        return [n for n in self._series if n not in _RESERVED]
 
     def series(self, name: str = POOL) -> List[PowerSample]:
-        src = self._sources.get(name)
-        return list(src.samples) if src else []
+        return list(self._series.get(name, ()))
 
     def last_watts(self, name: str = POOL) -> float:
-        src = self._sources.get(name)
-        return src.samples[-1].watts if src and src.samples else 0.0
+        s = self._series.get(name)
+        return s[-1].watts if s else 0.0
 
     def peak_watts(self, name: str = POOL) -> float:
-        src = self._sources.get(name)
-        return src.peak if src else 0.0
+        return self._peak.get(name, 0.0)
 
     def avg_watts(self, name: str = POOL) -> float:
-        src = self._sources.get(name)
-        if src is None or src.t - src.t0 <= 0.0:
+        dur = self._t_last.get(name, 0.0) - self._t0.get(name, 0.0)
+        if dur <= 0.0:
             return 0.0
-        return src.joules / (src.t - src.t0)
+        return self._joules.get(name, 0.0) / dur
 
     def total_wh(self, name: str = POOL) -> float:
-        src = self._sources.get(name)
-        return (src.joules if src else 0.0) / JOULES_PER_WH
+        return self._joules.get(name, 0.0) / JOULES_PER_WH
 
     def to_rows(self) -> Iterable[dict]:
         """Flat dict rows (for JSONL export)."""
-        for name in sorted(self._sources):
-            for s in self._sources[name].samples:
+        for name in sorted(self._series):
+            for s in self._series[name]:
                 yield {"source": name, "t_s": s.t_s, "watts": s.watts,
                        "joules_cum": s.joules_cum}

@@ -2,15 +2,17 @@
 package's examples:
 
   * ``torch_quickstart``, ``torch_lambda_tradeoff`` and
-    ``torch_energy_budget`` (``SimEngine`` pools; the last at its default
-    300 per task and with ``--carbon --per-task 40``) print the reference
+    ``torch_energy_budget`` (``SimEngine`` pools) print the reference
     scripts' lines, every number exact; only what reads the wall clock is
     left out of the comparison (the routing overhead in ms, the queue
     wait, the power trace's average and peak watts; its total Wh is
-    compared).  Each reference costs more than 40 s of serial time at its
-    own fixed size (35–90 s on this CPU), so its output is recorded here,
-    with the command that produced it (``JAX_PLATFORMS=cpu
-    PYTHONPATH=src``, from the repo root, jax 0.9.0);
+    compared).  ``energy_budget.py`` takes a size (``--per-task``), so it
+    runs here beside its twin: at 120 a task, where the governor holds
+    its cap, and with ``--carbon`` at 40, where it cannot.
+    The other two have no size flag and cost more than 40 s of serial
+    time at their fixed sizes, so their output is recorded here, with the
+    command that produced it (``JAX_PLATFORMS=cpu PYTHONPATH=src``, from
+    the repo root, jax 0.9.0);
   * ``torch_serve_pool`` at ``--queries 8`` on the JAX example's own
     engine weights (its 2-layer smoke configs, run in fp32 on both sides,
     carried by ``models/convert.py``; the port's energy constants set to
@@ -82,75 +84,6 @@ LAMBDA_TRADEOFF = """\
 the bandit walks the Pareto front in between — no recalibration.
 """
 
-# python examples/energy_budget.py
-ENERGY_BUDGET = """\
-serving 1500 queries, ungoverned (λ=0.4) ...
-  ungoverned: acc 0.592, 85.15 Wh (56.8 mWh/query)
-re-serving under a 51.09 Wh cap (60% of ungoverned) ...
-  governed:   acc 0.487, 48.50 Wh (32.3 mWh/query)
-  under cap: True   accuracy retained: 82.2%
-  λ trajectory: start 0.400 → peak 0.796 → final 0.627  (183 adjustments)
-
-[telemetry]
-  latency   p50    162.1 ms   p95    264.5 ms   p99   1023.3 ms   (n=1500)
-  queue     p50      1.1 ms   p95    371.0 ms
-  ttft      p50    162.1 ms   p95    264.5 ms
-  power     avg     6486.7 W   peak   114635.6 W   total 48.4528 Wh
-  phases    prefill 1.3657 Wh ( 2.8%)   decode 47.0871 Wh
-    gemma-3-12b             5.185 mWh/token (50 completions)
-    gemma-3-1b              0.679 mWh/token (63 completions)
-    gemma-3-27b             7.753 mWh/token (21 completions)
-    gemma-3-4b              2.752 mWh/token (32 completions)
-    llama-3.1-1b            0.382 mWh/token (174 completions)
-    llama-3.1-8b            2.970 mWh/token (46 completions)
-    llama-3.2-3b            1.204 mWh/token (36 completions)
-    mistral-7b              2.491 mWh/token (38 completions)
-    phi-4-14b               4.162 mWh/token (367 completions)
-    phi-4-mini-4b           1.732 mWh/token (147 completions)
-    qwen2.5-0.5b            0.202 mWh/token (276 completions)
-    qwen2.5-1.5b            0.527 mWh/token (45 completions)
-    qwen2.5-14b             4.037 mWh/token (107 completions)
-    qwen2.5-3b              1.551 mWh/token (39 completions)
-    qwen2.5-7b              2.256 mWh/token (43 completions)
-    yi-34b                  5.089 mWh/token (16 completions)
-  budget    48.504 / 51.091 Wh spent   pressure 0.56   λ now 0.627   (183 adjustments)
-"""
-
-# python examples/energy_budget.py --carbon --per-task 40
-ENERGY_BUDGET_CARBON = """\
-serving 200 queries, ungoverned (λ=0.4) ...
-  ungoverned: acc 0.511, 16.50 Wh (82.5 mWh/query)
-re-serving under a 9.90 Wh cap (60% of ungoverned) ...
-  governed:   acc 0.485, 16.69 Wh (83.4 mWh/query)
-  under cap: False   accuracy retained: 94.9%
-  λ trajectory: start 0.400 → peak 0.799 → final 0.799  (72 adjustments)
-
-[telemetry]
-  latency   p50    232.3 ms   p95   2121.7 ms   p99   3695.3 ms   (n=200)
-  queue     p50    167.8 ms   p95    889.0 ms
-  ttft      p50    232.3 ms   p95   2121.7 ms
-  power     avg     7650.0 W   peak    18236.4 W   total 16.6441 Wh
-  phases    prefill 0.2111 Wh ( 1.3%)   decode 16.4330 Wh
-    gemma-3-12b             4.358 mWh/token (12 completions)
-    gemma-3-1b              1.141 mWh/token (10 completions)
-    gemma-3-27b             7.943 mWh/token (14 completions)
-    gemma-3-4b              1.763 mWh/token (17 completions)
-    llama-3.1-1b            1.190 mWh/token (14 completions)
-    llama-3.1-8b            2.414 mWh/token (13 completions)
-    llama-3.2-3b            1.569 mWh/token (12 completions)
-    mistral-7b              2.013 mWh/token (9 completions)
-    phi-4-14b               3.019 mWh/token (10 completions)
-    phi-4-mini-4b           1.518 mWh/token (10 completions)
-    qwen2.5-0.5b            1.190 mWh/token (12 completions)
-    qwen2.5-1.5b            1.098 mWh/token (12 completions)
-    qwen2.5-14b             3.370 mWh/token (15 completions)
-    qwen2.5-3b              1.279 mWh/token (15 completions)
-    qwen2.5-7b              2.572 mWh/token (13 completions)
-    yi-34b                  5.056 mWh/token (12 completions)
-  budget    16.689 / 9.902 Wh spent   pressure 1.00   λ now 0.799   (72 adjustments)
-"""
-
-
 def _example(name: str):
     """``examples/<name>.py`` as a module (its ``main`` not run)."""
     spec = importlib.util.spec_from_file_location(name,
@@ -174,15 +107,29 @@ def _deterministic(text: str) -> list:
     return out
 
 
+def _reference_output(name: str, argv: list, monkeypatch, capsys) -> str:
+    """What ``examples/<name>.py`` prints with ``argv``, run as a script
+    from the repo root (it reaches ``benchmarks.common`` from there)."""
+    monkeypatch.chdir(EXAMPLES.parent)
+    monkeypatch.setattr(sys, "path", list(sys.path))
+    monkeypatch.setattr(sys, "argv", [f"{name}.py"] + argv)
+    runpy.run_path(str(EXAMPLES / f"{name}.py"), run_name="__main__")
+    return capsys.readouterr().out
+
+
 @pytest.mark.parametrize("name,argv,want", [
     ("torch_quickstart", [], QUICKSTART),
     ("torch_lambda_tradeoff", [], LAMBDA_TRADEOFF),
-    ("torch_energy_budget", [], ENERGY_BUDGET),
-    ("torch_energy_budget", ["--carbon", "--per-task", "40"],
-     ENERGY_BUDGET_CARBON),
+    ("torch_energy_budget", ["--per-task", "120"], None),
+    ("torch_energy_budget", ["--carbon", "--per-task", "40"], None),
 ], ids=["quickstart", "lambda_tradeoff", "energy_budget",
         "energy_budget_carbon"])
-def test_sim_example_prints_the_references_numbers(name, argv, want, capsys):
+def test_sim_example_prints_the_references_numbers(name, argv, want,
+                                                   monkeypatch, capsys):
+    """``want`` None: the reference script runs here, with ``argv``."""
+    if want is None:
+        want = _reference_output(name.removeprefix("torch_"), argv,
+                                 monkeypatch, capsys)
     _example(name).main(argv + ["--device", "cpu"])
     got = capsys.readouterr().out
     assert _deterministic(got) == _deterministic(want)

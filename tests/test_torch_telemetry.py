@@ -182,6 +182,23 @@ def test_p2_batched_updates_equal_jax(dist):
     assert PORT.tel.to_prometheus(regs[1]) == JAX.tel.to_prometheus(regs[0])
 
 
+def test_on_step_folds_every_histogram_of_its_registry():
+    """``Telemetry.on_step`` folds the pending observations of every
+    histogram its registry holds, the hub's own and any other made on the
+    same registry, so no P² work is left for the export reads, which lie
+    outside the timed hooks."""
+    tel = PORT.tel.Telemetry()
+    other = tel.registry.histogram("greenserv_other_ms")
+    other.record(3.0)
+    tel._latency.record(5.0)
+    assert other._pending and tel._latency._pending
+    tel.on_step({})
+    hists = [m for m in tel.registry if m.kind == "histogram"]
+    assert other in hists and len(hists) >= 5
+    assert not any(h._pending for h in hists)
+    assert (other.quantile(0.5), tel._latency.quantile(0.5)) == (3.0, 5.0)
+
+
 def _histogram(ns):
     r = ns.tel.MetricsRegistry()
     h = r.histogram("latency_ms")

@@ -248,6 +248,26 @@ Phases, in order; any failure raises and the script exits non-zero:
      within the kernel phase's tolerances, and
      ``examples/torch_quickstart.py`` with the reference script's
      accuracy, energy and selection counts exactly.
+  11. training (``repro_torch.train``, ``launch/train.py``), after every
+     earlier phase's models are freed: (a) rwkv6-1.6b at its full width
+     and depth (fp32 storage, bf16 compute, fp32 moments), 12 steps of
+     ``make_train_step`` on ``synthetic_batches`` at B=8 S=512, lr 3e-4 —
+     losses and grad norms finite, the last loss below the first, no
+     kernel launched; the median ms a step, tokens a second and the peak
+     memory printed; (b) rwkv6 and qwen2-moe smoke configs in fp32
+     compute, the same weights and batches through 3 steps on the card
+     and on the CPU (losses 1e-5 relative, every parameter leaf 1e-3
+     relative L2; lr and grad norms printed), ``ef_compress`` over 30
+     steps and
+     ``compressed_psum`` over 8 replicas bit-equal; (c) the launcher's
+     ``train`` with tests/test_train.py's injected failure and
+     ``examples/torch_train_100m.py`` at its defaults (the loss falls);
+     (d) (a)'s trained parameters through ``params_to_jax`` into a
+     checkpoint, restored bit-equal into a serving model, ``api.prefill``
+     at B=1 S=512 with ``use_pallas=True``: one WKV launch a layer and no
+     other, the logits against ``use_pallas=False`` at the prefill
+     phase's depth and tolerance (full depth printed), and the WKV
+     wrapper refusing a grad-requiring input under grad mode.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a result when no
@@ -519,6 +539,33 @@ BENCH_SWEEP_PER_TASK, BENCH_RUNS, BENCH_ENERGY_QUERIES = 25, 2, 24
 # (baselines: 60 a task, where 10-50 fail; RouterBench: 20, where 10-15
 # fail); the offline tables at 30 a task (T = 150) and at RouterBench's
 # least, 10 a task (its classifier fits on the table's first 90 queries)
+# the train phase: (a) rwkv6-1.6b at its full width and depth (fp32
+# storage, bf16 compute, fp32 moments; 25.3 GB of parameters, gradients
+# and moments), synthetic_batches at (batch, seq), the steps, lr: the
+# launcher's default lr, 3e-4 — at 1e-3 the first Adam steps (every
+# weight moved by ~lr after 3 warmup steps) throw the random 24-layer
+# stack about and the loss rises over the 12 steps (tools/train_phase.py
+# --lr 1e-3 3e-4; PERF.md §6); (b) card == CPU on smoke configs in
+# fp32 compute (batch, tokens a row, steps, lr): the losses at
+# tests/test_torch_train.py's 1e-5 relative; the parameters at 1e-3
+# relative L2 a leaf, not that test's 2e-4 (XLA against PyTorch on the
+# CPU, rwkv6 only): cuBLAS sums in other orders, so gradient elements
+# that cancel to near zero differ in their low bits, and each Adam step
+# divides an element's update by its own magnitude, so such an element
+# takes another update on each device; after 3 steps at lr 1e-3 the
+# worst leaf read 3.0e-5 (rwkv6's bonus_u) and 3.1e-4 (qwen2-moe's
+# embedding, N(0, 0.02) values moved by ~lr a step; MoE routing) on an
+# H100, the losses within 4e-6 (PERF.md §6);
+# (c) tests/test_train.py's launcher
+# call; (d) the trained weights' prefill (B = 1, S) through the WKV kernel
+TRAIN_FULL = (8, 512, 12, 3e-4)
+TRAIN_PARITY_ARCHS = (RWKV_ARCH, MOE_ARCH)
+TRAIN_PARITY = (4, 33, 3, 1e-3)
+TRAIN_LOSS_REL = 1e-5
+TRAIN_PARAM_REL = 1e-3
+TRAIN_LAUNCHER = dict(steps=8, batch=2, seq=32, ckpt_every=3,
+                      fail_at_step=5, lr=5e-3)
+HANDOFF_S = 512
 MAIN_TEL_PER_TASK = 60         # bench_telemetry's --smoke per_task
 TELEMETRY_JAX = [
     'governance,ungoverned_acc,0.5403',
@@ -4981,6 +5028,299 @@ def families_phase(dev) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# 11. training on the card
+# ---------------------------------------------------------------------------
+
+
+def train_full_width(dev, lr: float = TRAIN_FULL[3]) -> tuple:
+    """(a) ``make_train_step`` at rwkv6-1.6b's full width and depth on
+    ``synthetic_batches``, at ``lr``: no kernel launched.  Returns (model,
+    cfg, losses, grad norms); ``train_phase`` checks them."""
+    from repro_torch import train as tr
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.train import synthetic_batches
+    from repro_torch.models import api, convert
+
+    b, s, steps, _ = TRAIN_FULL
+    cfg = get_config(RWKV_ARCH)
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    model = api.init_params(cfg, 0, dev)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t
+    n_params = sum(p.numel() for p in model.parameters())
+    ocfg = tr.OptConfig(lr=lr, total_steps=steps,
+                        warmup_steps=min(20, steps // 5 + 1),
+                        moment_dtype=cfg.moment_dtype)
+    data = synthetic_batches(cfg, b, s + 1, device=dev)
+    bundle = tr.make_train_step(cfg, make_host_mesh(dev), next(data), ocfg,
+                                loss_chunk=min(512, s))
+    opt = tr.make_opt_state(cfg, model, ocfg)
+    reset_launches()
+    losses, norms, ms = [], [], []
+    for _ in range(steps):
+        batch = next(data)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        model, opt, m = bundle.fn(model, opt, batch)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t) * 1e3)
+    launched = {k: v for k, v in read_launches().items() if v}
+    peak = torch.cuda.max_memory_allocated() - base
+    med = float(np.median(ms[1:]))
+    state = sum(p.numel() * p.element_size() for p in model.parameters())
+    state += sum(t.numel() * t.element_size()
+                 for key in ("m", "v")
+                 for _, t in convert.tree_items(opt[key]))
+    log("train", f"(a) {RWKV_ARCH} full width ({n_params / 1e9:.3f} B "
+        f"parameters, {cfg.n_layers} layers, d_model {cfg.d_model}, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab_size}), B={b} S={s}, {steps} steps at "
+        f"lr {lr}: loss {losses[0]:.4f} -> {losses[-1]:.4f}, grad norm "
+        f"{norms[0]:.3f} -> {norms[-1]:.3f}; median {med:.3f} ms a step "
+        f"(steps 2-{steps}; first {ms[0]:.1f} ms; the weights drawn in "
+        f"{t_init:.2f} s), "
+        f"{b * s / med * 1e3:.1f} tokens/s; peak memory {peak / 2**30:.2f} "
+        f"GiB above {base / 2**30:.2f}, parameters + moments "
+        f"{state / 2**30:.2f} GiB (+ gradients {n_params * 4 / 2**30:.2f})")
+    log("train", "(a) losses " + " ".join(f"{x:.4f}" for x in losses))
+    if launched:
+        raise AssertionError(f"(a) training launched kernels: {launched}")
+    del opt
+    return model, cfg, losses, norms
+
+
+def _rel_l2(got: torch.Tensor, want: torch.Tensor) -> float:
+    got, want = got.double().cpu(), want.double().cpu()
+    return float((got - want).norm() / want.norm().clamp(min=1e-30))
+
+
+def train_parity(dev) -> None:
+    """(b) the same weights and batches through ``make_train_step`` on the
+    card and on the CPU: losses, lr and grad norms, then every parameter
+    leaf, at the CPU tests' tolerances; ``ef_compress`` and
+    ``compressed_psum`` bit-equal."""
+    from repro_torch import train as tr
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_host_mesh, make_mesh
+    from repro_torch.launch.train import synthetic_batches
+    from repro_torch.models import api, convert
+
+    cpu = torch.device("cpu")
+    b, s, steps, lr = TRAIN_PARITY
+    for arch in TRAIN_PARITY_ARCHS:
+        cfg = get_config(arch, smoke=True, dtype="float32")
+        tree = convert.params_to_jax(api.init_params(cfg, 1, cpu), cfg)
+        runs = []
+        for d in (dev, cpu):
+            model = convert.params_from_jax(tree, cfg, d)
+            ocfg = tr.OptConfig(lr=lr, total_steps=10, warmup_steps=1)
+            data = synthetic_batches(cfg, b, s, device=d)
+            bundle = tr.make_train_step(cfg, make_host_mesh(d), next(data),
+                                        ocfg, loss_chunk=16)
+            opt = tr.make_opt_state(cfg, model, ocfg)
+            metrics = []
+            for _ in range(steps):
+                model, opt, m = bundle.fn(model, opt, next(data))
+                metrics.append({k: float(v) for k, v in m.items()})
+            runs.append((metrics, convert.params_to_jax(model, cfg)))
+        (got_m, got_p), (want_m, want_p) = runs
+        gap = {k: max(abs(g[k] - w[k]) / abs(w[k]) if w[k] else abs(g[k])
+                      for g, w in zip(got_m, want_m))
+               for k in ("loss", "lr", "grad_norm")}
+        worst_p = max((_rel_l2(convert.tree_get(got_p, path), leaf), path)
+                      for path, leaf in convert.tree_items(want_p))
+        log("train", f"(b) {arch} smoke fp32, {steps} steps on the card vs "
+            f"the CPU: losses {[round(m['loss'], 6) for m in got_m]}; "
+            f"largest relative gap of the loss {gap['loss']:.3g}, lr "
+            f"{gap['lr']:.3g}, grad norm {gap['grad_norm']:.3g}; of a "
+            f"parameter leaf (L2) {worst_p[0]:.3g} "
+            f"({'/'.join(worst_p[1])})")
+        if not (gap["loss"] <= TRAIN_LOSS_REL
+                and worst_p[0] <= TRAIN_PARAM_REL):
+            raise AssertionError(f"(b) {arch}: card vs CPU {gap['loss']:.3g}"
+                                 f" / {worst_p[0]:.3g} > {TRAIN_LOSS_REL} / "
+                                 f"{TRAIN_PARAM_REL}")
+    rng = np.random.default_rng(0)
+    ef = [tr.ef_init({"w": torch.zeros(64, device=d),
+                      "m": torch.zeros(3, 5, 7, device=d)})
+          for d in (dev, cpu)]
+    for i in range(30):
+        g = {"w": rng.standard_normal(64).astype(np.float32),
+             "m": rng.standard_normal((3, 5, 7)).astype(np.float32) * i}
+        out = []
+        for j, d in enumerate((dev, cpu)):
+            gq, ef[j] = tr.ef_compress(
+                {k: torch.from_numpy(v).to(d) for k, v in g.items()}, ef[j])
+            out.append((gq, ef[j]))
+        for k in g:
+            for a, c in zip(*out):
+                if not torch.equal(a[k].cpu(), c[k]):
+                    raise AssertionError(f"(b) ef_compress step {i} {k}: "
+                                         f"card != CPU")
+    stacked = {"w": torch.from_numpy(rng.standard_normal((8, 32, 16))
+                                     .astype(np.float32))}
+    mesh = make_mesh((8,), ("data",))
+    sums = [tr.compressed_psum({k: v.to(d) for k, v in stacked.items()},
+                               "data", mesh)["w"].cpu() for d in (dev, cpu)]
+    if not torch.equal(*sums):
+        raise AssertionError("(b) compressed_psum: card != CPU")
+    log("train", "(b) ef_compress over 30 steps and compressed_psum over 8 "
+        "replicas bit-equal, card vs CPU")
+
+
+def train_launcher(dev) -> None:
+    """(c) the launcher with an injected failure (tests/test_train.py's
+    call) and the ``torch_train_100m`` example twin at its defaults, on
+    the card."""
+    import importlib.util
+    import tempfile
+
+    from repro_torch.launch.train import train
+
+    with tempfile.TemporaryDirectory() as d:
+        out = train(RWKV_ARCH, smoke=True, ckpt_dir=d, log_every=100,
+                    device=dev, **TRAIN_LAUNCHER)
+    log("train", f"(c) launcher: {out['steps']} steps, {len(out['losses'])} "
+        f"losses (the restored span re-run), {out['first_loss']:.4f} -> "
+        f"{out['final_loss']:.4f}")
+    if not (out["steps"] == TRAIN_LAUNCHER["steps"]
+            and np.isfinite(out["final_loss"])
+            and len(out["losses"]) >= TRAIN_LAUNCHER["steps"]):
+        raise AssertionError(f"(c) launcher: {out}")
+    spec = importlib.util.spec_from_file_location(
+        "torch_train_100m", ROOT / "examples" / "torch_train_100m.py")
+    twin = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(twin)
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        out = twin.main(["--ckpt", d])
+    log("train", f"(c) examples/torch_train_100m.py: {out['steps']} steps, "
+        f"loss {out['first_loss']:.4f} -> {out['final_loss']:.4f} in "
+        f"{time.perf_counter() - t:.2f} s")
+    if not out["final_loss"] < out["first_loss"]:
+        raise AssertionError(f"(c) the twin's loss did not fall: {out}")
+
+
+def train_handoff(dev, model, cfg) -> dict:
+    """(d) (a)'s trained parameters written as a checkpoint through
+    ``params_to_jax``, restored into a serving model and prefilled with
+    ``use_pallas=True``: one WKV launch a layer and no other, the logits
+    against the same model's ``use_pallas=False`` path (checked at the
+    first PREFILL_CHECK_DEPTH layers, as the prefill phase's; printed at
+    full depth); a kernel wrapper refusing a grad-requiring input.
+    Returns the prefill's launches."""
+    import tempfile
+
+    from repro_torch.distributed import checkpoint as ckpt
+    from repro_torch.kernels.rwkv6 import ops as rwkv6_ops
+    from repro_torch.launch.train import synthetic_batches
+    from repro_torch.models import api, convert, lm
+
+    serve_cfg = dataclasses.replace(cfg, use_pallas=True)
+    tree = convert.params_to_jax(model, cfg)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as d:
+        t = time.perf_counter()
+        ckpt.save(d, TRAIN_FULL[2], tree, extra={"arch": RWKV_ARCH})
+        t_save = time.perf_counter() - t
+        t = time.perf_counter()
+        shapes = api.param_shapes(cfg)
+        restored, _ = ckpt.restore(d, shapes, shardings=convert.tree_map(
+            lambda _: dev, shapes))
+        serving = convert.load_params_(lm.DecoderLM(serve_cfg, dev),
+                                       restored)
+        t_load = time.perf_counter() - t
+    del restored
+    for path, idx, p in convert.jax_paths(serving):
+        leaf = convert.tree_get(tree, path)
+        if not torch.equal(p, leaf if idx is None else leaf[idx]):
+            raise AssertionError(f"(d) {'/'.join(path)}[{idx}] changed "
+                                 f"through the checkpoint")
+    del tree
+    torch.cuda.empty_cache()
+    toks = next(synthetic_batches(cfg, 1, HANDOFF_S + 1, seed=7,
+                                  device=dev))["tokens"]
+    batch = {"tokens": toks}
+    reset_launches()
+    fast = api.prefill(serving, batch, serve_cfg)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    want = expected_launches(serve_cfg)
+    plain = api.prefill(serving, batch,
+                        dataclasses.replace(serve_cfg, use_pallas=False))
+    full = logit_gap(fast, plain)
+    view, cut = layers_view(serving, serve_cfg, range(PREFILL_CHECK_DEPTH))
+    gap = logit_gap(api.prefill(view, batch, cut), api.prefill(
+        view, batch, dataclasses.replace(cut, use_pallas=False)))
+    log("train", f"(d) checkpoint of the trained {RWKV_ARCH} written in "
+        f"{t_save:.2f} s, restored into a serving model in {t_load:.2f} s, "
+        f"every parameter bit-equal; prefill B=1 S={HANDOFF_S} launches "
+        f"{launches}; use_pallas True vs False: {gap[0]:.5f} of the logit "
+        f"range at {PREFILL_CHECK_DEPTH} layers (mean {gap[1]:.5f}), "
+        f"{full[0]:.5f} at {cfg.n_layers} (mean {full[1]:.5f})")
+    if launches != want:
+        raise AssertionError(f"(d) prefill launches {launches}, expected "
+                             f"{want}")
+    if not (torch.isfinite(fast).all() and gap[0] <= PREFILL_REL_TOL):
+        raise AssertionError(f"(d) use_pallas True vs False {gap[0]:.5f} > "
+                             f"{PREFILL_REL_TOL} of the logit range, or "
+                             f"logits not finite")
+    q = torch.randn((1, 8, 2, 64), device=dev, requires_grad=True)
+    n0 = rwkv6_ops.launches
+    try:
+        rwkv6_ops.wkv(q, q, q, -torch.ones_like(q), torch.zeros(
+            (2, 64), device=dev))
+    except RuntimeError as e:
+        if "no backward pass" not in str(e):
+            raise
+    else:
+        raise AssertionError("(d) the WKV wrapper took a grad-requiring "
+                             "input under grad mode")
+    if rwkv6_ops.launches != n0:
+        raise AssertionError("(d) the refused call launched the kernel")
+    log("train", "(d) the WKV wrapper refuses a grad-requiring input under "
+        "grad mode, on the card, without a launch")
+    return launches
+
+
+def train_phase(dev) -> dict:
+    """(a) full-width training, (b) card == CPU, (c) the launcher and the
+    example twin, (d) the hand-off to serving.  Returns (d)'s launches
+    (training itself launches none)."""
+    t = time.perf_counter()
+    model, cfg, losses, norms = train_full_width(dev)
+    if not all(np.isfinite(losses + norms)):
+        raise AssertionError(f"(a) a loss or grad norm is not finite: "
+                             f"{losses} {norms}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"(a) the last loss {losses[-1]} is not below "
+                             f"the first {losses[0]}")
+    log("train", f"(a) {time.perf_counter() - t:.2f} s")
+    t = time.perf_counter()
+    launches = train_handoff(dev, model, cfg)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("train", f"(d) {time.perf_counter() - t:.2f} s")
+    for name, part in (("(b)", train_parity), ("(c)", train_launcher)):
+        t = time.perf_counter()
+        reset_launches()
+        part(dev)
+        launched = {k: v for k, v in read_launches().items() if v}
+        if launched:
+            raise AssertionError(f"{name} training launched kernels: "
+                                 f"{launched}")
+        log("train", f"{name} {time.perf_counter() - t:.2f} s")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; this script runs on the "
@@ -5064,6 +5404,11 @@ def main() -> int:
     t = time.perf_counter()
     families = families_phase(dev)
     phase_done("families", t, f"; launches {families}")
+    gc.collect()                  # the families' models
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    trained = train_phase(dev)
+    phase_done("train", t, f"; launches {trained}")
     phase_done("total", t_start, " after the build")
 
     # the router kernels' rows are at Q = 1, LinUCB's at the paper pool's
@@ -5078,7 +5423,9 @@ def main() -> int:
     # cache_len 32705 of 32768), its launches those of the 32 steps
     # the families phase adds whisper's, llava's, gemma3-27b's and grok's
     # flash launches, grok's gating launches, gemma3-27b's decode
-    # launches and the paper benches' router launches to each count
+    # launches and the paper benches' router launches to each count, and
+    # the train phase its hand-off prefill's WKV launches (training itself
+    # launches none)
     f1 = next(r for r in feat["rows"] if r["label"] == "mode=both Q=1")
     l1 = next(r for r in lin["rows"] if r["label"] == "M=32 d=12 Q=1")
     g4 = next(r for r in gate["rows"] if r["t"] == 4 and not r["tied"])
@@ -5114,8 +5461,9 @@ def main() -> int:
             + gemma3["prefill"]["flash_attention"]
             + families["flash_attention"],
             flash["worst"], fa, fa["library_ms"]),
-        row("rwkv6", "rwkv6.cu", "rwkv6/kernel.py:25", prefill["rwkv6"],
-            wkv["worst"], wkv["rows"][0]),
+        row("rwkv6", "rwkv6.cu", "rwkv6/kernel.py:25",
+            prefill["rwkv6"] + trained["rwkv6"], wkv["worst"],
+            wkv["rows"][0]),
         row("mamba2", "mamba2.cu", "mamba2/kernel.py:25", hybrid["mamba2"],
             ssd["worst"], ssd["rows"][0]),
         row("decode_attention", "decode_attention.cu",

@@ -22,10 +22,10 @@ shard silently dropping off the network.  ``_fail_over`` then
      ``PoolServer.add_engine`` under ``<base>@<dead-shard>`` names —
      zero-calibration arms whose statistics the next all-reduce seeds
      from the global per-base totals;
-  4. records the fail-over event; its ``remesh`` entry, in the JAX
-     package an elastic re-mesh plan over the fleet mesh, is None here
-     until the port's device-mesh plan (ROADMAP A.11) — what the JAX
-     package records on a shared-device fleet;
+  4. records the fail-over event, with its ``remesh`` entry: how the
+     surviving chips of the fleet mesh would re-mesh
+     (``distributed.elastic.plan_remesh``), or None where the fleet was
+     built without meshes or the survivors cannot host the model axis;
   5. re-dispatches the collected queries to live shards.
 
 ``drive_fleet`` is the virtual-clock loop (same idle-jump discipline as
@@ -41,9 +41,9 @@ from typing import Callable, Dict, List, Mapping, Optional, Sequence, Tuple
 import numpy as np
 
 from repro_torch.distributed import checkpoint as ckpt
+from repro_torch.distributed.elastic import plan_remesh
 from repro_torch.distributed.fault import HeartbeatMonitor
-from repro_torch.fleet.plan import (NO_MESH, FleetPlan, ShardSpec,
-                                    base_model_name)
+from repro_torch.fleet.plan import FleetPlan, ShardSpec, base_model_name
 from repro_torch.fleet.sync import FeedbackAllReduce
 from repro_torch.serving.scheduler import LivelockError, PoolServer
 
@@ -60,10 +60,11 @@ def _arrayify(tree):
 class FleetShard:
     """One pool replica: spec + server + liveness + harvest bookkeeping."""
 
-    def __init__(self, spec: ShardSpec, server: PoolServer):
+    def __init__(self, spec: ShardSpec, server: PoolServer, mesh=None):
         self.spec = spec
         self.name = spec.name
         self.server = server
+        self.mesh = mesh
         self.alive = True
         # uids whose responses the controller has already read out of
         # server.responses (which is never popped — see module docstring)
@@ -82,7 +83,8 @@ class FleetController:
                  heartbeat_timeout_s: float = 5.0,
                  clock: Optional[Callable[[], float]] = None,
                  engine_factory: Optional[
-                     Callable[..., object]] = None):
+                     Callable[..., object]] = None,
+                 fleet_mesh=None):
         if not shards:
             raise ValueError("fleet needs at least one shard")
         self.shards: Dict[str, FleetShard] = {s.name: s for s in shards}
@@ -98,6 +100,7 @@ class FleetController:
         # without it fail-over still re-dispatches, just without the
         # extra capacity
         self.engine_factory = engine_factory
+        self.fleet_mesh = fleet_mesh
         cfg = shards[0].server.router.config
         self.allreduce = FeedbackAllReduce(cfg.lambda_reg, cfg.context_dim)
         self.responses: Dict[int, object] = {}
@@ -240,12 +243,27 @@ class FleetController:
                     self.engine_factory(new_profile, target.spec))
                 adopted += 1
         self.stats["adopted_engines"] += adopted
+        remesh = self._remesh_record(dead)
         self.events.append({"kind": "failover", "shard": dead.name,
                             "t": self.clock(), "redispatched": len(lost),
-                            "adopted_engines": adopted, "remesh": None})
+                            "adopted_engines": adopted, "remesh": remesh})
         self.stats["failovers"] += 1
         for q in lost:
             self.dispatch(q)
+
+    def _remesh_record(self, dead: FleetShard) -> Optional[dict]:
+        """Elastic-degradation bookkeeping: how the surviving fleet chips
+        would re-mesh (``distributed.elastic.plan_remesh``), recorded on
+        the fail-over event.  None without a fleet mesh or where the
+        survivor count can't host the model axis."""
+        if self.fleet_mesh is None:
+            return None
+        try:
+            plan = plan_remesh(self.fleet_mesh,
+                               lost_chips=dead.spec.n_devices)
+        except ValueError:
+            return None
+        return dataclasses.asdict(plan)
 
     # -- stat sync ------------------------------------------------------
     def sync_now(self) -> dict:
@@ -343,10 +361,10 @@ def build_fleet(plan: FleetPlan,
                 server_kwargs: Optional[dict] = None) -> FleetController:
     """Wire a ``FleetController`` from a plan: one router replica + one
     ``PoolServer`` per shard, engines from ``engine_factory(profile,
-    spec)``.  ``build_meshes=True`` (the JAX package's per-shard and fleet
-    meshes) raises until the port's device-mesh plan (ROADMAP A.11)."""
-    if build_meshes:
-        raise NotImplementedError(NO_MESH)
+    spec)``.  ``build_meshes=True`` also gives every shard its mesh and
+    the controller the fleet mesh (``launch.mesh.Mesh``s over the plan's
+    device ids, shared ids included), which its fail-over events' re-mesh
+    records read."""
     shards = []
     for spec in plan.shards:
         router = router_factory(spec)
@@ -355,10 +373,13 @@ def build_fleet(plan: FleetPlan,
                              for i in range(len(router.pool))]}
         server = PoolServer(router, engines, clock=clock,
                             **(server_kwargs or {}))
-        shards.append(FleetShard(spec, server))
+        mesh = plan.shard_mesh(spec) if build_meshes else None
+        shards.append(FleetShard(spec, server, mesh=mesh))
+    fleet_mesh = plan.fleet_mesh() if build_meshes else None
     return FleetController(shards, sync_every=sync_every,
                            heartbeat_timeout_s=heartbeat_timeout_s,
-                           clock=clock, engine_factory=engine_factory)
+                           clock=clock, engine_factory=engine_factory,
+                           fleet_mesh=fleet_mesh)
 
 
 def drive_fleet(controller: FleetController,

@@ -5,10 +5,11 @@
 pool behind its own ``PoolServer`` + ``GreenServRouter`` (weak scaling: n
 shards absorb n× the arrival rate at ~flat per-query latency).
 
-The JAX package also builds one ``("data", "model")`` mesh per shard and
-one over the whole fleet, for the elastic re-mesh record a fail-over
-leaves.  Those meshes wait for the port's device-mesh plan (ROADMAP
-A.11): ``shard_mesh`` and ``fleet_mesh`` raise.
+``shard_mesh`` gives a shard its ``(n_dev, 1)`` ``("data", "model")``
+mesh and ``fleet_mesh`` one over every shard's devices (``launch.mesh``),
+as the JAX package's: the frame of reference of the elastic re-mesh
+record a fail-over leaves.  Shards that share a device (one card, many
+virtual shards) share its id in the meshes, as JAX meshes allow.
 
 Planning is pure bookkeeping — importing this module never touches device
 state.
@@ -18,10 +19,10 @@ from __future__ import annotations
 import dataclasses
 from typing import List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
-NO_MESH = ("device meshes wait for the port's device-mesh plan "
-           "(ROADMAP A.11)")
+from repro_torch.launch.mesh import PLACEHOLDER, Mesh
 
 
 def base_model_name(member: str) -> str:
@@ -47,21 +48,31 @@ class ShardSpec:
 
 @dataclasses.dataclass(frozen=True)
 class FleetPlan:
-    """Shard layout (axes fixed to ("data", "model"), as in the JAX
-    package)."""
+    """Shard layout + mesh builders (axes fixed to ("data", "model"), as in
+    the JAX package); ``platform`` is the devices' ("cuda", "cpu", or
+    "plan" for devices known only by id)."""
 
     shards: Tuple[ShardSpec, ...]
     axes: Tuple[str, str] = ("data", "model")
+    platform: str = "cuda"
 
     @property
     def n_shards(self) -> int:
         return len(self.shards)
 
-    def shard_mesh(self, spec: ShardSpec):
-        raise NotImplementedError(NO_MESH)
+    def _mesh(self, ids) -> Mesh:
+        return Mesh(np.array(ids).reshape(len(ids), 1), self.axes,
+                    self.platform)
 
-    def fleet_mesh(self):
-        raise NotImplementedError(NO_MESH)
+    def shard_mesh(self, spec: ShardSpec) -> Mesh:
+        """Per-shard mesh: (n_dev, 1) over exactly the shard's devices."""
+        return self._mesh(spec.device_ids)
+
+    def fleet_mesh(self) -> Mesh:
+        """Whole-fleet mesh (all shards' devices) — the frame of reference
+        for ``plan_remesh`` degradation records on shard loss."""
+        return self._mesh([i for spec in self.shards
+                           for i in spec.device_ids])
 
 
 def _device_id(d) -> int:
@@ -98,6 +109,9 @@ def plan_fleet(n_shards: int,
         devices = [torch.device("cuda", i)
                    for i in range(torch.cuda.device_count())]
     ids = [_device_id(d) for d in devices]
+    platform = (devices[0].type if devices and isinstance(devices[0],
+                                                          torch.device)
+                else PLACEHOLDER)
     shards: List[ShardSpec] = []
     models = tuple(pool_names)
     for i in range(n_shards):
@@ -105,4 +119,4 @@ def plan_fleet(n_shards: int,
             else (ids[i % len(ids)],)
         shards.append(ShardSpec(index=i, name=f"shard{i}",
                                 device_ids=mine, models=models))
-    return FleetPlan(shards=tuple(shards))
+    return FleetPlan(shards=tuple(shards), platform=platform)

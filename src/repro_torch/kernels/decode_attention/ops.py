@@ -6,6 +6,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import refuse_grad
 from repro_torch.kernels.decode_attention import kernel
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 
@@ -30,6 +31,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     ``cache_len`` ints or 0-d int tensors.  Positions [cache_len - window,
     cache_len) are visible; a row with none comes out 0."""
     global launches
+    refuse_grad("decode_attention", q, k_cache, v_cache)
     if not (q.device == k_cache.device == v_cache.device):
         raise ValueError(f"decode_attention inputs on different devices: "
                          f"{q.device}, {k_cache.device}, {v_cache.device}")

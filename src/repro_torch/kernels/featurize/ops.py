@@ -5,6 +5,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import refuse_grad
 from repro_torch.kernels.featurize import kernel
 from repro_torch.kernels.featurize.ref import hashed_embed_ref
 
@@ -23,6 +24,7 @@ def hashed_embed(ids: torch.Tensor, weights: torch.Tensor,
     """ids/weights: (Q, L), id −1 = padding; proj: (hash_dim, dim) →
     (Q, dim) unit embeddings, on the inputs' device."""
     global launches
+    refuse_grad("featurize", weights, proj)
     if not (ids.device == weights.device == proj.device):
         raise ValueError(f"featurize inputs on different devices: "
                          f"{ids.device}, {weights.device}, {proj.device}")

@@ -7,6 +7,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import refuse_grad
 from repro_torch.kernels.flash_attention import kernel
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
@@ -21,6 +22,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q: (B, Sq, Hq, hd); k, v: (B, Sk, Hk, hd), one dtype → (B, Sq, Hq,
     hd).  ``window`` counts visible past positions including self."""
     global launches, wgmma_launches
+    refuse_grad("flash_attention", q, k, v)
     if not (q.device == k.device == v.device):
         raise ValueError(f"flash_attention inputs on different devices: "
                          f"{q.device}, {k.device}, {v.device}")

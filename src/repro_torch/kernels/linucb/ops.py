@@ -5,6 +5,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import refuse_grad
 from repro_torch.kernels.featurize.ops import pad_pow2
 from repro_torch.kernels.linucb import kernel
 from repro_torch.kernels.linucb.ref import linucb_scores_ref
@@ -18,6 +19,7 @@ def linucb_scores(a_inv: torch.Tensor, theta: torch.Tensor, x: torch.Tensor,
     """a_inv: (M, d, d); theta: (M, d); x: (d,) or (Q, d) → (M,) or (Q, M),
     on the inputs' device."""
     global launches
+    refuse_grad("linucb", a_inv, theta, x)
     if not (a_inv.device == theta.device == x.device):
         raise ValueError(f"linucb inputs on different devices: "
                          f"{a_inv.device}, {theta.device}, {x.device}")

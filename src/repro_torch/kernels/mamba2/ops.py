@@ -10,6 +10,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.kernels import refuse_grad
 from repro_torch.kernels.mamba2 import kernel
 from repro_torch.kernels.mamba2.ref import ssd_ref
 
@@ -26,6 +27,7 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
     h, p) in x's dtype, final state (b, h, p, n) fp32).  dt, A and h0 are
     read in fp32, as the model gives them."""
     global launches
+    refuse_grad("ssd", x, dt, B, C, A, h0)
     b, s, h, p = x.shape
     n = B.shape[-1]
     tensors = (x, dt, B, C, A) + (() if h0 is None else (h0,))

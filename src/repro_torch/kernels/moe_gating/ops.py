@@ -6,6 +6,7 @@ from typing import Tuple
 
 import torch
 
+from repro_torch.kernels import refuse_grad
 from repro_torch.kernels.moe_gating import kernel
 from repro_torch.kernels.moe_gating.ref import topk_gating_ref
 
@@ -18,6 +19,7 @@ def topk_gating(logits: torch.Tensor, k: int
     """logits: (T, E) → (weights (T, k) fp32 softmaxed over the chosen k,
     indices (T, k) int32, descending, ties to the lowest index)."""
     global launches
+    refuse_grad("moe_gating", logits)
     logits = logits.to(torch.float32).contiguous()
     if logits.device.type == "cpu":
         return topk_gating_ref(logits, k)

@@ -10,6 +10,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.kernels import refuse_grad
 from repro_torch.kernels.rwkv6 import kernel
 from repro_torch.kernels.rwkv6.ref import wkv_ref
 
@@ -26,6 +27,7 @@ def wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     zeros.  Returns (y (B, S, H, K) in r's dtype, final state (B, H, K, K)
     fp32).  logw, u and s0 are read in fp32, as the model gives them."""
     global launches
+    refuse_grad("wkv", r, k, v, logw, u, s0)
     b, s, h, kd = r.shape
     tensors = (r, k, v, logw, u) + (() if s0 is None else (s0,))
     if len({t.device for t in tensors}) != 1:

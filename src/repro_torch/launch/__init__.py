@@ -1,1 +1,3 @@
-"""Entry points: ``serve`` (the GreenServ pool server over real models)."""
+"""Entry points: ``serve`` (the GreenServ pool server over real models),
+``train`` (the training launcher) and ``mesh`` (the device meshes they and
+the elastic re-mesh plan read)."""

@@ -101,7 +101,6 @@ def _positions(b: int, s: int, device: torch.device) -> torch.Tensor:
     return torch.arange(s, dtype=torch.int32, device=device).expand(b, s)
 
 
-@torch.no_grad()
 def encode(model: EncDecLM, frames: torch.Tensor,
            cfg: ModelConfig) -> torch.Tensor:
     """frames: (B, n_frames, d_model) stub embeddings → the final-normed
@@ -129,7 +128,6 @@ def cross_kv(layer: DecoderLayer, enc_out: torch.Tensor,
     return k, v
 
 
-@torch.no_grad()
 def forward_hidden(model: EncDecLM, frames: torch.Tensor,
                    tokens: torch.Tensor, cfg: ModelConfig
                    ) -> Tuple[torch.Tensor, torch.Tensor]:

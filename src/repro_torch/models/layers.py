@@ -17,7 +17,9 @@ from torch import nn
 
 def param(shape: Sequence[int], dtype: torch.dtype,
           device: torch.device) -> nn.Parameter:
-    """An uninitialized inference parameter (no autograd)."""
+    """An uninitialized parameter, made without autograd: serving never
+    records a graph, and the train step turns it on for its own model's
+    parameters while it runs (``train/step.py``)."""
     return nn.Parameter(torch.empty(tuple(shape), dtype=dtype, device=device),
                         requires_grad=False)
 

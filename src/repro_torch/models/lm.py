@@ -152,7 +152,6 @@ def _attn_block(layer: nn.Module, x: torch.Tensor, positions: torch.Tensor,
     return x + m, layer_aux
 
 
-@torch.no_grad()
 def forward_hidden(model: DecoderLM, tokens: torch.Tensor, cfg: ModelConfig,
                    frontend_embeddings: Optional[torch.Tensor] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -162,7 +161,9 @@ def forward_hidden(model: DecoderLM, tokens: torch.Tensor, cfg: ModelConfig,
     layouts).  Dense and MoE layers attend through
     ``attention.attention_prefill`` with their own window; RWKV layers
     start from a zero state each; the hybrid runs its shared attention
-    block, window S, after every ``attn_every``-th Mamba layer."""
+    block, window S, after every ``attn_every``-th Mamba layer.  It
+    records a graph where the parameters require grad (the train step);
+    the serving entry points of ``models/api.py`` run it without."""
     x = embed(model.embed, tokens, cfg.torch_dtype())
     if frontend_embeddings is not None:
         x = torch.cat([frontend_embeddings.to(x.dtype), x], dim=1)

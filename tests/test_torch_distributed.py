@@ -7,8 +7,8 @@ monitor, the straggler detector, the training watchdog, and router and
 cost-model state on the same machinery — and checkpoints crossing
 between the packages: one written by either restores in the other with
 equal leaves, and the same tree gives the same manifest and the same
-leaf files byte for byte.  The re-mesh cases wait for the port's
-device-mesh plan (ROADMAP A.11)."""
+leaf files byte for byte.  The re-mesh cases, which need the device
+meshes, are ``tests/test_torch_train_loop.py``'s."""
 import json
 import pathlib
 import types

@@ -6,7 +6,7 @@ round trip), the controller's fail-over on a two-shard fleet of 120
 queries (stats, events and trajectory equal to the JAX package's), the
 fleet checkpoint (restored fleets route like the saved one, and a JAX
 fleet's checkpoint loads into the port), heartbeats on the virtual
-clock, the refusals (no CUDA, no meshes), and ``pool_scale.main``'s smoke
+clock, the refusal without CUDA, the meshes, and ``pool_scale.main``'s smoke
 run equal to ``benchmarks/bench_pool_scale.py``'s; and the bandit
 update, which the merged replicas' near ties make decisive, rounding as
 the JAX package's bit for bit.  The routers are on the CPU; their
@@ -146,12 +146,10 @@ def test_plan_fleet_refusals(monkeypatch):
         fleet.plan_fleet(2, ["a"])
     plan = fleet.plan_fleet(2, ["a"], devices=[CPU])
     assert [s.device_ids for s in plan.shards] == [(0,), (0,)]
-    # the meshes wait for the port's device-mesh plan
-    for call in (lambda: plan.shard_mesh(plan.shards[0]), plan.fleet_mesh,
-                 lambda: fleet.build_fleet(plan, None, None,
-                                           build_meshes=True)):
-        with pytest.raises(NotImplementedError, match="A.11"):
-            call()
+    # the meshes: (n, 1) over each shard's devices, shared ids included
+    assert plan.shard_mesh(plan.shards[0]).shape == {"data": 1, "model": 1}
+    assert plan.fleet_mesh().devices.tolist() == [[0], [0]]
+    assert plan.fleet_mesh().device == CPU
 
 
 def test_base_model_name():

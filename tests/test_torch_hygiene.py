@@ -45,11 +45,13 @@ def test_no_jax_or_reference_imports(path):
 
 def test_the_walk_covers_every_subpackage():
     """Every subpackage of the port has its modules in the import walk —
-    the energy layer (``costmodel``, ``telemetry``), the launcher, the
-    fleet and its fault and checkpoint primitives among them."""
+    the energy layer (``costmodel``, ``telemetry``), the launchers, the
+    fleet, its fault, checkpoint and re-mesh primitives and the training
+    substrate among them."""
     subpackages = {p.parent for p in PORT.rglob("__init__.py")}
     assert subpackages <= {p.parent for p in FILES}
-    for name in ("costmodel", "telemetry", "launch", "fleet", "distributed"):
+    for name in ("costmodel", "telemetry", "launch", "fleet", "distributed",
+                 "train"):
         assert PORT / name in subpackages
 
 

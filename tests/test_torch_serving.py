@@ -198,10 +198,10 @@ def test_pool_server_run_matches_jax(equal_energy_constants):
 
 
 def test_unported_serving_options_raise():
-    """The fleet's device meshes wait for a later slice and raise, and a
-    decoder-only model refuses the encoder-decoder layout (that is
-    ``encdec.EncDecLM``, which ``lm.init_lm`` builds); the reliability and
-    disaggregation options of ``PoolServer`` are taken."""
+    """The fleet's device meshes are built (two shards sharing the CPU
+    share its id), and a decoder-only model refuses the encoder-decoder
+    layout (that is ``encdec.EncDecLM``, which ``lm.init_lm`` builds); the
+    reliability and disaggregation options of ``PoolServer`` are taken."""
     from repro_torch.fleet import plan_fleet
     from repro_torch.serving import BreakerConfig
     pcfg = get_config("granite-3-8b", **F32)
@@ -209,8 +209,8 @@ def test_unported_serving_options_raise():
     with pytest.raises(ValueError, match="EncDecLM"):
         lm.DecoderLM(encdec_cfg, torch.device("cpu"))
     assert "cross_k" in lm.init_cache(encdec_cfg, 1, 128, device="cpu")
-    with pytest.raises(NotImplementedError, match="A.11"):
-        plan_fleet(2, ["g"], devices=[torch.device("cpu")]).fleet_mesh()
+    mesh = plan_fleet(2, ["g"], devices=[torch.device("cpu")]).fleet_mesh()
+    assert mesh.shape == {"data": 2, "model": 1}
     eng = ModelEngine("g", pcfg, max_len=32, device="cpu")
     twin = ModelEngine("g", pcfg, max_len=32, params=eng.params,
                        role="decode", device="cpu")

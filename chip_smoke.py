@@ -268,6 +268,24 @@ Phases, in order; any failure raises and the script exits non-zero:
      other, the logits against ``use_pallas=False`` at the prefill
      phase's depth and tolerance (full depth printed), and the WKV
      wrapper refusing a grad-requiring input under grad mode.
+  12. the cost walk (``repro_torch.launch.dryrun``), after the train
+     phase's models are freed: (a) the records of two one-card cells of
+     granite-3-8b at full width and depth (40 layers, bf16 weights),
+     ``run_cell`` on the (1, 1) plan: prefill at B=2 S=4096 and lockstep
+     ``serve_step`` at B=4 over a 32768-deep cache (a 0-d length);
+     ``HBM_PER_CHIP`` held to the card's ``total_memory`` where the card
+     is the one it names; (b) the same steps built on the card
+     (``train.make_prefill_step``/``make_serve_step`` on the host mesh),
+     their FLOPs under ``FlopCounterMode`` with ``use_pallas=False``
+     equal to the meta record's; (c) each step timed with CUDA events
+     (the median of 5 after a warm-up) with ``use_pallas`` False and True
+     (40 flash launches a prefill, 40 decode-attention launches a step,
+     counted), printed beside the record's ``t_compute_s``,
+     ``t_memory_s`` and ``bottleneck``, ``max_memory_allocated`` beside
+     ``peak_bytes_per_dev``; every time at least max(t_compute,
+     arg_bytes_per_dev / HBM_BW) / 1.05 (no step beats its FLOPs at the
+     bf16 peak or one read of its weights and cache); (d)
+     ``benchmarks.roofline.table`` over (a)'s records: two OK rows.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a result when no
@@ -566,6 +584,10 @@ TRAIN_PARAM_REL = 1e-3
 TRAIN_LAUNCHER = dict(steps=8, batch=2, seq=32, ckpt_every=3,
                       fail_at_step=5, lr=5e-3)
 HANDOFF_S = 512
+COST_ARCH = "granite-3-8b"     # the cost phase's model, full width and depth
+COST_CELLS = ((2, 4096, "prefill"), (4, 32768, "decode"))  # (B, S, kind)
+COST_REPS = 5                  # timed calls a step and use_pallas setting
+COST_SLACK = 1.05              # a step's time >= its spec floor / this
 MAIN_TEL_PER_TASK = 60         # bench_telemetry's --smoke per_task
 TELEMETRY_JAX = [
     'governance,ungoverned_acc,0.5403',
@@ -5321,6 +5343,165 @@ def train_phase(dev) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# 12. the cost walk on the card
+# ---------------------------------------------------------------------------
+
+
+def step_ms(dev, fn, reps: int = COST_REPS) -> float:
+    """The median milliseconds of ``reps`` calls of ``fn`` after one
+    warm-up, each between two CUDA events (host clock off the card)."""
+    fn()
+    times = []
+    for _ in range(reps):
+        if dev.type == "cuda":
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+        else:
+            t = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t) * 1e3)
+    return float(np.median(times))
+
+
+def cost_cell(dev, model, cfg, b: int, s: int, kind: str, out_dir) -> tuple:
+    """One card cell: its meta record (written to ``out_dir``), the FLOP
+    count of the real step on the card against it, and the step timed
+    with ``use_pallas`` False and True.  Returns (record, launches)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch import train as tr
+    from repro_torch.configs import ShapeCell
+    from repro_torch.core.energy import HBM_BW
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh, make_mesh
+    from repro_torch.models import api
+
+    cell = ShapeCell(f"card_{kind}_b{b}_s{s}", kind, s, b)
+    t = time.perf_counter()
+    rec = dryrun.run_cell(COST_ARCH, cell, mesh=make_mesh(
+        (1, 1), ("data", "model")), lockstep=True)
+    t_walk = time.perf_counter() - t
+    (out_dir / f"{COST_ARCH}__{cell.name}__1x1.json").write_text(
+        json.dumps(rec, indent=1))
+    mesh = make_host_mesh(dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(12)
+    if kind == "prefill":
+        batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, s),
+                                         generator=gen, device=dev,
+                                         dtype=torch.int32)}
+
+        def bundle(c):
+            return tr.make_prefill_step(c, mesh, batch)
+
+        def call(bd):
+            return bd.fn(model, batch)
+    else:
+        cache = api.init_cache(cfg, b, s, dev)
+        cache["length"] = torch.tensor(s - 4 * COST_REPS - 8,
+                                       dtype=torch.int32, device=dev)
+        token = torch.randint(0, cfg.vocab_size, (b, 1), generator=gen,
+                              device=dev, dtype=torch.int32)
+
+        def bundle(c):
+            return tr.make_serve_step(c, mesh, b, s)
+
+        def call(bd):
+            return bd.fn(model, cache, token)
+    plain = bundle(cfg)
+    fast = bundle(dataclasses.replace(cfg, use_pallas=True))
+    torch.cuda.reset_peak_memory_stats()
+    with FlopCounterMode(display=False) as counter:
+        call(plain)
+    flops = counter.get_total_flops()
+    torch.cuda.synchronize()
+    ms_plain = step_ms(dev, lambda: call(plain))
+    reset_launches()
+    ms_fast = step_ms(dev, lambda: call(fast))
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in read_launches().items() if v}
+    peak = torch.cuda.max_memory_allocated()
+    floor_s = max(rec["t_compute_s"], rec["arg_bytes_per_dev"] / HBM_BW)
+    log("cost", f"{kind} B={b} S={s}: the meta walk {t_walk:.2f} s "
+        f"(record {rec['walk_s']} s); FLOPs on the card {flops:,} == the "
+        f"record's {int(rec['flops']):,}: {flops == rec['flops']}; "
+        f"{ms_plain:.3f} ms (use_pallas=False), {ms_fast:.3f} ms "
+        f"(use_pallas=True, launches {launches} over {COST_REPS + 1} "
+        f"calls) against t_compute {rec['t_compute_s'] * 1e3:.3f} ms, "
+        f"t_memory (eager bytes {rec['bytes_per_dev']:.4g}) "
+        f"{rec['t_memory_s'] * 1e3:.3f} ms, bottleneck "
+        f"{rec['bottleneck']}, the floor {floor_s * 1e3:.3f} ms (arg bytes "
+        f"{rec['arg_bytes_per_dev']:,}); max_memory_allocated "
+        f"{peak / 2**30:.2f} GiB beside peak_bytes_per_dev "
+        f"{rec['peak_bytes_per_dev'] / 2**30:.2f} GiB (temp "
+        f"{rec['temp_bytes_per_dev'] / 2**30:.2f})")
+    if flops != rec["flops"]:
+        raise AssertionError(f"(b) {kind}: {flops} FLOPs on the card, "
+                             f"{rec['flops']} in the meta record")
+    for what, ms in (("use_pallas=False", ms_plain),
+                     ("use_pallas=True", ms_fast)):
+        if ms / 1e3 < floor_s / COST_SLACK:
+            raise AssertionError(f"(c) {kind} {what}: {ms:.3f} ms under "
+                                 f"the floor {floor_s * 1e3:.3f} ms / "
+                                 f"{COST_SLACK}")
+    want = {"flash_attention" if kind == "prefill" else "decode_attention":
+            cfg.n_layers * (COST_REPS + 1)}
+    if launches != want:
+        raise AssertionError(f"(c) {kind} launches {launches}, expected "
+                             f"{want}")
+    return rec, launches
+
+
+def cost_phase(dev) -> dict:
+    """(a)–(d) on full-width granite-3-8b: two one-card records, the card's
+    FLOPs equal to them, the steps above their spec floors, the Roofline
+    table.  Returns the kernels' launches."""
+    import tempfile
+
+    from repro_torch.benchmarks import roofline
+    from repro_torch.configs import for_mode, get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.models import api
+
+    name = torch.cuda.get_device_name(0)
+    total = torch.cuda.get_device_properties(0).total_memory
+    log("cost", f"{name}: total_memory {total:,} B; dryrun.HBM_PER_CHIP "
+        f"{dryrun.HBM_PER_CHIP:,}")
+    if "H100 80GB HBM3" in name and total != dryrun.HBM_PER_CHIP:
+        raise AssertionError(f"(a) HBM_PER_CHIP {dryrun.HBM_PER_CHIP} is "
+                             f"not this {name}'s {total}")
+    cfg = for_mode(get_config(COST_ARCH), "serve")
+    t = time.perf_counter()
+    model = api.init_params(cfg, 0, dev)
+    torch.cuda.synchronize()
+    log("cost", f"{COST_ARCH} at full width and depth ({cfg.n_layers} "
+        f"layers, {sum(p.numel() for p in model.parameters()) / 1e9:.3f} B "
+        f"parameters, bf16) drawn in {time.perf_counter() - t:.2f} s")
+    launches: dict = {}
+    with tempfile.TemporaryDirectory() as d:
+        out = Path(d)
+        for b, s, kind in COST_CELLS:
+            _, got = cost_cell(dev, model, cfg, b, s, kind, out)
+            for k, v in got.items():
+                launches[k] = launches.get(k, 0) + v
+            gc.collect()
+            torch.cuda.empty_cache()
+        lines = roofline.table(str(out))
+    for line in lines:
+        log("cost", f"(d) {line}")
+    status = [line.split(",")[3] for line in lines[1:]]
+    if status != ["OK"] * len(COST_CELLS):
+        raise AssertionError(f"(d) the Roofline table's rows: {status}")
+    del model
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; this script runs on the "
@@ -5409,6 +5590,11 @@ def main() -> int:
     t = time.perf_counter()
     trained = train_phase(dev)
     phase_done("train", t, f"; launches {trained}")
+    gc.collect()                  # the train phase's models
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    cost = cost_phase(dev)
+    phase_done("cost", t, f"; launches {cost}")
     phase_done("total", t_start, " after the build")
 
     # the router kernels' rows are at Q = 1, LinUCB's at the paper pool's
@@ -5425,7 +5611,8 @@ def main() -> int:
     # flash launches, grok's gating launches, gemma3-27b's decode
     # launches and the paper benches' router launches to each count, and
     # the train phase its hand-off prefill's WKV launches (training itself
-    # launches none)
+    # launches none); the cost phase adds its prefills' flash launches and
+    # its lockstep steps' decode launches
     f1 = next(r for r in feat["rows"] if r["label"] == "mode=both Q=1")
     l1 = next(r for r in lin["rows"] if r["label"] == "M=32 d=12 Q=1")
     g4 = next(r for r in gate["rows"] if r["t"] == 4 and not r["tied"])
@@ -5459,7 +5646,7 @@ def main() -> int:
             "flash_attention/kernel.py:33",
             prefill["flash_attention"] + hybrid["flash_attention"]
             + gemma3["prefill"]["flash_attention"]
-            + families["flash_attention"],
+            + families["flash_attention"] + cost.get("flash_attention", 0),
             flash["worst"], fa, fa["library_ms"]),
         row("rwkv6", "rwkv6.cu", "rwkv6/kernel.py:25",
             prefill["rwkv6"] + trained["rwkv6"], wkv["worst"],
@@ -5469,7 +5656,8 @@ def main() -> int:
         row("decode_attention", "decode_attention.cu",
             "decode_attention/kernel.py:29",
             gemma3["decode"]["decode_attention"]
-            + families["decode_attention"], decode["worst"], da,
+            + families["decode_attention"]
+            + cost.get("decode_attention", 0), decode["worst"], da,
             da["library_ms"]),
     ]
     for k in kernels:

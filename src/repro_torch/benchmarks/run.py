@@ -6,15 +6,13 @@ the port's twin of the JAX package's ``benchmarks/run.py``.
 
 The sections, their titles, order and sizes (default, ``--fast``,
 ``--full``) are the reference's; every section runs on ``--device``
-(default: the card).  Two differences:
-
-  * the reference's last section, ``Roofline table (from dry-run
-    records)``, is left out: it reads the records of the dry-run cost
-    walk (``launch/dryrun.py``), which the port does not have yet;
-  * a section that raises still prints the reference's ``# FAILED: ...``
-    line and the run goes on to the next section, but ``main`` then
-    returns 1 (the CLI's exit code), so a failed section never ends in
-    exit 0.
+(default: the card); the last, ``Roofline table (from dry-run
+records)``, reads the records of the port's dry run
+(``python -m repro_torch.launch.dryrun``, ``experiments/dryrun_torch``)
+and runs on no device.  One difference: a section that raises still
+prints the reference's ``# FAILED: ...`` line and the run goes on to the
+next section, but ``main`` then returns 1 (the CLI's exit code), so a
+failed section never ends in exit 0.
 
 ``BENCH_*.json`` artifacts are written only where the reference's
 sections write them (baselines, RouterBench, GreenCache), in the working
@@ -47,7 +45,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                                         energy_model, features, kernels,
                                         lambda_sweep, model_addition,
                                         overhead, pool_scale, prefill,
-                                        routerbench, scenarios, telemetry)
+                                        roofline, routerbench, scenarios,
+                                        telemetry)
 
     failed = []
 
@@ -110,6 +109,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                 fleet=not args.fast, artifact=None, device=dev))
     section("Kernels: allclose + ref timing",
             lambda: kernels.main(device=dev))
+    section("Roofline table (from dry-run records)",
+            lambda: roofline.table("experiments/dryrun_torch"))
     print(f"\n== total {time.time() - t_start:.1f}s ==")
     if failed:
         print(f"# {len(failed)} section(s) failed: {'; '.join(failed)}",

@@ -5,7 +5,7 @@ reduced smoke variants.  ``configs/pool.py::build_assigned_pool`` orders
 its arms by ``ARCH_IDS``.
 
 Usage:
-    from repro_torch.configs import get_config, for_mode
+    from repro_torch.configs import get_config, for_mode, SHAPES
     cfg  = get_config("granite-3-8b")              # exact published dims
     tiny = get_config("granite-3-8b", smoke=True)  # reduced same-family config
 """
@@ -18,6 +18,8 @@ from repro_torch.configs import (gemma3_12b, gemma3_27b, granite_3_8b,
                                  grok_1_314b, h2o_danube_3_4b, llava_next_34b,
                                  qwen2_moe_a2_7b, rwkv6_1_6b, whisper_medium,
                                  zamba2_7b)
+from repro_torch.configs.shapes import (SHAPES, ShapeCell, cell_applicable,
+                                        input_specs, text_len)
 from repro_torch.models.config import ModelConfig, scaled_down
 
 _MODULES = [granite_3_8b, gemma3_27b, h2o_danube_3_4b, gemma3_12b,
@@ -47,4 +49,5 @@ def for_mode(cfg: ModelConfig, mode: str) -> ModelConfig:
     return cfg
 
 
-__all__ = ["REGISTRY", "ARCH_IDS", "get_config", "for_mode"]
+__all__ = ["REGISTRY", "ARCH_IDS", "get_config", "for_mode", "SHAPES",
+           "ShapeCell", "cell_applicable", "input_specs", "text_len"]

@@ -8,6 +8,7 @@ prefill and lockstep decode, over every layout of the JAX package's
     loss_fn(model, batch, cfg)              chunked-CE loss (+ MoE aux)
     prefill(model, batch, cfg)              last-position logits, no cache
     init_cache(cfg, batch, max_len, device) decode cache
+    cache_shapes(cfg, batch, max_len)       the decode cache, meta tensors
     serve_step(model, token, cache, cfg)    one-token decode
     prefill_chunk(model, toks, cache, …)    C-token prompt slab into the cache
     splice_prefix(cache, slot, k, v)        prompt-prefix KV into a slot
@@ -59,6 +60,12 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> DecoderLM:
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device=None) -> Cache:
     return lm.init_cache(cfg, batch, max_len, device)
+
+
+def cache_shapes(cfg: ModelConfig, batch: int, max_len: int) -> Cache:
+    """The decode cache as meta tensors — the JAX package's
+    ``cache_shapes`` tree (its keys, shapes and dtypes)."""
+    return lm.init_cache(cfg, batch, max_len, torch.device("meta"))
 
 
 def _hidden(model: DecoderLM, batch: Batch, cfg: ModelConfig):

@@ -47,14 +47,22 @@ class Attention(nn.Module):
         self.wo = param((hq, hd, d), dt, device)
 
 
+def project_q(params: Attention, x: torch.Tensor, positions: torch.Tensor,
+              cfg: ModelConfig, rope: bool = True) -> torch.Tensor:
+    """The query projection alone: cross-attention reads its K/V from the
+    encoder side, so it projects no K/V of its own (the JAX package
+    projects them and XLA drops the unused products)."""
+    q = torch.einsum("bsd,dhk->bshk", x, params.wq.to(cfg.torch_dtype()))
+    return apply_rope(q, positions, cfg.rope_theta) if rope else q
+
+
 def project_qkv(params: Attention, x: torch.Tensor, positions: torch.Tensor,
                 cfg: ModelConfig, rope: bool = True):
     dt = cfg.torch_dtype()
-    q = torch.einsum("bsd,dhk->bshk", x, params.wq.to(dt))
+    q = project_q(params, x, positions, cfg, rope=rope)
     k = torch.einsum("bsd,dhk->bshk", x, params.wk.to(dt))
     v = torch.einsum("bsd,dhk->bshk", x, params.wv.to(dt))
     if rope:
-        q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
 
@@ -214,12 +222,13 @@ def attention_prefill_chunk(params: Attention, x: torch.Tensor,
     c = x.shape[1]
     offs = torch.arange(c, dtype=torch.int32, device=x.device)
     positions = lengths[:, None] + offs[None, :]                 # (B, C)
-    q, k_new, v_new = project_qkv(params, x, positions, cfg, rope=rope)
     if cross:
+        q = project_q(params, x, positions, cfg, rope=rope)
         n_f = k_cache.shape[1]
         out = chunk_attend(q, k_cache, v_cache, n_f,
                            torch.full_like(positions, n_f - 1))
     else:
+        q, k_new, v_new = project_qkv(params, x, positions, cfg, rope=rope)
         write_chunk_(k_cache, k_new, lengths, active)
         write_chunk_(v_cache, v_new, lengths, active)
         out = chunk_attend(q, k_cache, v_cache, window, positions)
@@ -238,8 +247,10 @@ def attention_prefill(params: Attention, x: torch.Tensor,
     those keys.  Attends through the flash-attention kernel's wrapper
     under ``cfg.use_pallas``, else through ``flash_prefill``."""
     dt = cfg.torch_dtype()
-    q, k, v = project_qkv(params, x, positions, cfg, rope=rope)
-    if kv_override is not None:
+    if kv_override is None:
+        q, k, v = project_qkv(params, x, positions, cfg, rope=rope)
+    else:
+        q = project_q(params, x, positions, cfg, rope=rope)
         k, v = kv_override
     causal = kv_override is None
     if cfg.use_pallas:
@@ -272,11 +283,12 @@ def attention_decode(params: Attention, x: torch.Tensor,
     s = k_cache.shape[1]
     lockstep = cache_len.ndim == 0
     lengths = lengths_vec(cache_len, x.shape[0])
-    q, k_new, v_new = project_qkv(params, x, lengths[:, None], cfg, rope=rope)
     if cross:
+        q = project_q(params, x, lengths[:, None], cfg, rope=rope)
         out = decode_attend(q, k_cache, v_cache, window,
                             torch.full_like(lengths, s))
         return torch.einsum("bshk,hkd->bsd", out, params.wo.to(dt))
+    q, k_new, v_new = project_qkv(params, x, lengths[:, None], cfg, rope=rope)
     if cfg.kv_update == "where" or not lockstep:
         sel = (torch.arange(s, device=x.device)[None]
                == lengths[:, None])[:, :, None, None]

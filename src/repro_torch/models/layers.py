@@ -9,7 +9,7 @@ converts without transposes (``models/convert.py``).
 from __future__ import annotations
 
 import math
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 from torch import nn
@@ -24,12 +24,31 @@ def param(shape: Sequence[int], dtype: torch.dtype,
                         requires_grad=False)
 
 
-def init_leaf_(name: str, p: torch.Tensor, generator: torch.Generator) -> None:
+def init_std(name: str, shape: Sequence[int]) -> Optional[float]:
+    """The std of the JAX package's normal draw for a leaf called ``name``
+    of ``shape`` — the leaf as the JAX tree holds it, per-layer leaves
+    stacked on their layer axis — or None for a leaf that takes no normal
+    draw (norms, biases, ``a_log``, ``decay*``).  Embeddings take 0.02,
+    every other leaf 1/sqrt(fan_in) with fan_in = shape[-2] (the last dim
+    for 1-d leaves): a layer's (d,) vector is (L, d) once stacked, so it
+    draws N(0, 1/L)."""
+    if name.startswith(("norm", "scale", "ln", "bias", "dt_bias", "a_log",
+                        "decay")):
+        return None
+    if name.startswith("embed"):
+        return 0.02
+    fan_in = shape[-2] if len(shape) >= 2 else max(shape[-1], 1)
+    return 1.0 / math.sqrt(fan_in)
+
+
+def init_leaf_(name: str, p: torch.Tensor, generator: torch.Generator,
+               leaf_shape: Optional[Sequence[int]] = None) -> None:
     """The JAX package's init rule for one leaf, in place: norms 1, biases
-    0, Mamba's ``a_log`` log U[1, 16), RWKV's ``decay*`` U[-8, -4), embed
-    N(0, 0.02), everything else N(0, 1/fan_in) with fan_in = shape[-2]
-    (the last dim for 1-d leaves).  Draws are float32 from ``generator``,
-    then cast to the parameter's dtype."""
+    0, Mamba's ``a_log`` log U[1, 16), RWKV's ``decay*`` U[-8, -4),
+    everything else N(0, ``init_std(name, leaf_shape)``).  ``leaf_shape``
+    is the shape of the JAX leaf ``p`` belongs to (default: ``p``'s own,
+    as for a stacked tree).  Draws are float32 from ``generator``, then
+    cast to the parameter's dtype."""
     if name.startswith(("norm", "scale", "ln")):
         p.fill_(1.0)
         return
@@ -42,21 +61,34 @@ def init_leaf_(name: str, p: torch.Tensor, generator: torch.Generator) -> None:
                           device=p.device) * (hi - lo) + lo
         p.copy_(torch.log(draw) if name.startswith("a_log") else draw)
         return
-    if name.startswith("embed"):
-        std = 0.02
-    else:
-        fan_in = p.shape[-2] if p.dim() >= 2 else max(p.shape[-1], 1)
-        std = 1.0 / math.sqrt(fan_in)
+    std = init_std(name, p.shape if leaf_shape is None else leaf_shape)
     draw = torch.randn(p.shape, generator=generator, dtype=torch.float32,
                        device=p.device)
     p.copy_(draw * std)
 
 
+def leaf_shapes(module: nn.Module) -> list:
+    """(JAX leaf name, the JAX leaf's shape) for every parameter of a
+    whole model, in ``named_parameters`` order: a per-layer parameter's
+    leaf is stacked on a leading axis of its layer count
+    (``convert.leaf_groups``)."""
+    from repro_torch.models import convert   # convert imports the models
+    params = convert.jax_paths(module)
+    out = [None] * len(params)
+    for path, stacked, members in convert.leaf_groups(module):
+        for j in members:
+            shape = tuple(params[j][2].shape)
+            out[j] = (path[-1], (len(members),) + shape if stacked else shape)
+    return out
+
+
 def init_module_(module: nn.Module, generator: torch.Generator) -> None:
-    """Initialize every parameter of ``module`` in registration order."""
+    """Initialize every parameter of a whole model in registration order,
+    each by the JAX rule for the leaf it belongs to (``leaf_shapes``)."""
     with torch.no_grad():
-        for path, p in module.named_parameters():
-            init_leaf_(path.split(".")[-1], p, generator)
+        for p, (name, shape) in zip(module.parameters(),
+                                    leaf_shapes(module)):
+            init_leaf_(name, p, generator, shape)
 
 
 # ---------------------------------------------------------------------------

@@ -178,7 +178,8 @@ def forward_hidden(model: DecoderLM, tokens: torch.Tensor, cfg: ModelConfig,
                 aux = aux + layer_aux
     elif cfg.layout == "rwkv":
         for layer in model.layers:
-            st = rwkv_lib.init_rwkv_state(cfg, b, x.device)
+            # wkv None: a zero initial state, which the scan need not read
+            st = rwkv_lib.init_rwkv_state(cfg, b, x.device)._replace(wkv=None)
             h, st = rwkv_lib.rwkv_time_mix(
                 layer.rwkv, rms_norm(x, layer.ln1, cfg.norm_eps), st, cfg)
             x = x + h

@@ -98,7 +98,9 @@ def wkv_chunked(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         cum = torch.cumsum(wb, dim=1)                   # inclusive Σ log w
         cum_prev = cum - wb
         r_dec = rb * torch.exp(cum_prev)
-        y_inter = torch.einsum("blhk,bhkv->blhv", r_dec, state)
+        # the first chunk of a zero initial state carries nothing in
+        y_inter = (torch.einsum("blhk,bhkv->blhv", r_dec, state)
+                   if c0 or s0 is not None else 0.0)
         b_ = kb * torch.exp(-cum)
         att = torch.einsum("bthk,bshk->bhts", r_dec, b_)
         att = torch.where(tri[None, None], att, 0.0)

@@ -102,9 +102,11 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
         M = torch.where(m4, torch.exp(torch.where(m4, diff, 0.0)), 0.0)
         M = M * G[..., None] * dtb[:, None, :, :]
         y_intra = torch.einsum("btsh,bshp->bthp", M, xb)
-        # inter-chunk: (C_t · h_in) · exp(cum_t)
+        # inter-chunk: (C_t · h_in) · exp(cum_t); the first chunk of a
+        # zero initial state carries nothing in
         y_inter = (torch.einsum("btn,bhpn->bthp", Cb, state)
-                   * torch.exp(cum)[..., None])
+                   * torch.exp(cum)[..., None]
+                   if c0 or h0 is not None else 0.0)
         scale = torch.exp(cum[:, -1:, :] - cum) * dtb     # (b, L, h)
         state = (state * torch.exp(cum[:, -1])[:, :, None, None]
                  + torch.einsum("blh,blhp,bln->bhpn", scale, xb, Bb))

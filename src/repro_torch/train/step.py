@@ -6,8 +6,10 @@ the JAX package's bundles carry NamedShardings for ``jax.jit``.  A
 placement here is a tree of ``torch.device``s of the inputs' and outputs'
 structure — what ``distributed.checkpoint.restore(..., shardings=)``
 takes.  One process drives the mesh's first device, so every leaf is
-replicated there (the meta device for a production plan); the sharding
-policy of the reference's ``models/sharding.py`` comes with the cost walk.
+replicated there (the meta device for a production plan).  ``specs``
+holds the inputs' partition specs on the mesh from the bundle's
+``ShardingPolicy`` (``models/sharding.py``), in ``in_shardings``'
+structure: what the cost walk (``launch/dryrun.py``) reads.
 
 The train step takes (model, opt_state, batch) and returns (model,
 opt_state, metrics): the model's parameters and the stacked moments are
@@ -28,6 +30,7 @@ from repro_torch.launch.mesh import Mesh
 from repro_torch.models import api, convert
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.convert import tree_get, tree_map
+from repro_torch.models.sharding import ShardingPolicy
 from repro_torch.train import compress, optim
 from repro_torch.train.optim import OptConfig
 
@@ -39,6 +42,8 @@ class StepBundle:
     out_shardings: Any
     mesh: Mesh
     describe: str = ""
+    policy: Optional[ShardingPolicy] = None
+    specs: Any = None
 
 
 def _placed(mesh: Mesh, tree: Any) -> Any:
@@ -150,13 +155,20 @@ def make_train_step(cfg: ModelConfig, mesh: Mesh,
     psh = _placed(mesh, shapes)
     osh = _placed(mesh, opt_state_shapes(cfg, ocfg, use_ef_compress))
     bsh = _placed(mesh, dict(example_batch))
+    policy = ShardingPolicy(cfg, mesh, "train")
+    pspecs = policy.param_specs(shapes)
+    ospecs = {"m": pspecs, "v": pspecs, "step": ()}
+    if use_ef_compress:
+        ospecs["ef"] = pspecs
     metric_keys = ["loss", "lr", "grad_norm"] + (["ce", "aux"]
                                                  if n_micro == 1 else [])
     return StepBundle(
         fn=train_step, in_shardings=(psh, osh, bsh),
         out_shardings=(psh, osh, dict.fromkeys(metric_keys, mesh.device)),
         mesh=mesh,
-        describe=f"train_step n_micro={n_micro} ef={use_ef_compress}")
+        describe=f"train_step n_micro={n_micro} ef={use_ef_compress}",
+        policy=policy,
+        specs=(pspecs, ospecs, policy.batch_specs(dict(example_batch))))
 
 
 def make_opt_state(cfg: ModelConfig, model, opt_cfg: Optional[OptConfig] = None,
@@ -194,37 +206,36 @@ def make_prefill_step(cfg: ModelConfig, mesh: Mesh,
     def prefill_step(model, batch):
         return api.prefill(model, batch, cfg)
 
+    shapes = api.param_shapes(cfg)
+    policy = ShardingPolicy(cfg, mesh, "serve")
     return StepBundle(fn=prefill_step,
-                      in_shardings=(_placed(mesh, api.param_shapes(cfg)),
+                      in_shardings=(_placed(mesh, shapes),
                                     _placed(mesh, dict(example_batch))),
                       out_shardings=mesh.device, mesh=mesh,
-                      describe="prefill")
-
-
-def _kv_update_mode(mesh: Mesh, batch: int, n_kv_heads: int) -> str:
-    """The reference policy's rule: 'dus' when the cache's S dim stays
-    local (the batch and kv heads divide over the mesh), else 'where'."""
-    axes = ("pod", "data") if "pod" in mesh.axis_names else ("data",)
-    bsz = 1
-    for a in axes:
-        bsz *= mesh.shape[a]
-    batch_ok = batch % bsz == 0 and batch >= bsz
-    heads_ok = n_kv_heads % mesh.shape["model"] == 0
-    return "dus" if (batch_ok and heads_ok) else "where"
+                      describe="prefill", policy=policy,
+                      specs=(policy.param_specs(shapes),
+                             policy.batch_specs(dict(example_batch))))
 
 
 def make_serve_step(cfg: ModelConfig, mesh: Mesh, batch_size: int,
                     seq_len: int) -> StepBundle:
-    """One-token decode against a cache of depth ``seq_len``."""
+    """One-token decode against a cache of depth ``seq_len``; the cache
+    append is the policy's ``kv_update_mode``."""
+    policy = ShardingPolicy(cfg, mesh, "serve")
     cfg = dataclasses.replace(
-        cfg, kv_update=_kv_update_mode(mesh, batch_size, cfg.n_kv_heads))
+        cfg, kv_update=policy.kv_update_mode(batch_size, cfg.n_kv_heads))
 
     def serve_step(model, cache, token):
         return api.serve_step(model, token, cache, cfg)
 
-    psh = _placed(mesh, api.param_shapes(cfg))
-    csh = _placed(mesh, api.init_cache(cfg, batch_size, seq_len, "meta"))
+    shapes = api.param_shapes(cfg)
+    cache = api.cache_shapes(cfg, batch_size, seq_len)
+    psh = _placed(mesh, shapes)
+    csh = _placed(mesh, cache)
     return StepBundle(fn=serve_step,
                       in_shardings=(psh, csh, mesh.device),
                       out_shardings=(mesh.device, csh), mesh=mesh,
-                      describe=f"serve_step kv={seq_len}")
+                      describe=f"serve_step kv={seq_len}", policy=policy,
+                      specs=(policy.param_specs(shapes),
+                             policy.cache_specs(cache),
+                             policy.batch_spec("token", (batch_size, 1))))

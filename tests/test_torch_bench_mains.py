@@ -17,9 +17,10 @@
   * the aggregator ``run.main``: with every section's bench function
     replaced by a recorder in both aggregators, the (title, bench,
     function, kwargs) calls of the default, ``--fast`` and ``--full``
-    runs equal, apart from the reference's ``Roofline`` section and the
-    port's ``device``; a section that raises prints ``# FAILED`` and the
-    port's ``main`` returns 1 after running every section.
+    runs equal, all 17 with the ``Roofline`` section last, apart from the
+    port's ``device`` and the port's dry-run directory; a section that
+    raises prints ``# FAILED`` and the port's ``main`` returns 1 after
+    running every section.
 """
 import importlib
 import json
@@ -280,6 +281,7 @@ JAX_BENCHES = {"bench_baselines": ["main"], "bench_lambda_sweep": ["main"],
                "bench_energy_model": ["main"], "bench_chaos": ["main"],
                "bench_kernels": ["main"], "roofline": ["table"]}
 ROOFLINE = "Roofline table (from dry-run records)"
+DRYRUN_DIRS = {"experiments/dryrun": "experiments/dryrun_torch"}
 
 
 def _record(monkeypatch, package: str, calls: list, fail=None):
@@ -287,8 +289,6 @@ def _record(monkeypatch, package: str, calls: list, fail=None):
     by a recorder of (bench, function, kwargs); ``fail`` names a
     (bench, function) that raises instead."""
     for bench, fns in JAX_BENCHES.items():
-        if package != "benchmarks" and bench == "roofline":
-            continue                # the port has no roofline section yet
         name = bench if package == "benchmarks" else bench.replace(
             "bench_", "")
         module = importlib.import_module(f"{package}.{name}")
@@ -319,10 +319,12 @@ def test_aggregator_calls_match_the_reference(flags, monkeypatch, capsys):
     ptitles = _titles(capsys.readouterr().out)
     assert jtitles[-1] == ROOFLINE and jcalls[-1][:2] == ("roofline",
                                                          "table")
-    assert all(kw.pop("device") == "cpu" for _, _, _, kw in pcalls)
-    assert list(zip(ptitles, pcalls)) == list(zip(jtitles[:-1],
-                                                  jcalls[:-1]))
-    assert len(pcalls) == len(ptitles) == 16
+    assert all(kw.pop("device") == "cpu" for b, _, _, kw in pcalls
+               if b != "roofline")
+    jcalls = [(b, f, tuple(DRYRUN_DIRS.get(a, a) for a in args), kw)
+              for b, f, args, kw in jcalls]
+    assert list(zip(ptitles, pcalls)) == list(zip(jtitles, jcalls))
+    assert len(pcalls) == len(ptitles) == 17
 
 
 def test_aggregator_failed_section_exits_nonzero(monkeypatch, capsys):
@@ -334,5 +336,5 @@ def test_aggregator_failed_section_exits_nonzero(monkeypatch, capsys):
     assert port_run.main(["--fast", "--device", "cpu"]) == 1
     out = capsys.readouterr().out
     assert "# FAILED: RuntimeError: boom" in out
-    assert len(_titles(out)) == 16 and len(calls) == 15
-    assert calls[-1][:2] == ("kernels", "main")
+    assert len(_titles(out)) == 17 and len(calls) == 16
+    assert calls[-1][:2] == ("roofline", "table")

@@ -44,7 +44,8 @@ from repro_torch.data import tokenizer as tok
 from repro_torch.models.convert import params_from_jax
 from repro_torch.serving import ModelEngine, PoolServer, SimEngine
 from repro_torch.telemetry import EnergyBudgetGovernor, Telemetry
-from test_torch_serving import equal_energy_constants  # noqa: F401
+from test_torch_serving import (equal_energy_constants,  # noqa: F401
+                                one_torch_thread)
 
 pytestmark = [pytest.mark.port, pytest.mark.costmodel]
 
@@ -72,19 +73,6 @@ PACKAGES = {
         encode=tok.encode, router_kw=dict(device="cpu")),
 }
 JAX, PORT = PACKAGES["jax"], PACKAGES["port"]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """One intra-op thread while this module runs: the suite runs in
-    several worker processes at once, and torch's default pool (a thread
-    per core in each) oversubscribes the cores — a launcher test took 245
-    s of wall time beside five copies of itself with the default threads
-    and 13 s with one."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _both(case, *args, **kwargs):

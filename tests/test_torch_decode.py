@@ -22,6 +22,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels.decode_attention import kernel
 from repro_torch.kernels.decode_attention.ref import (
     decode_attention_ref, decode_attention_split_ref)
+from test_torch_costmodel import one_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.port
 

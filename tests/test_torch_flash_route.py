@@ -23,6 +23,7 @@ import jax.numpy as jnp
 from repro.kernels.flash_attention.ops import flash_attention as jax_flash
 from repro.kernels.flash_attention.ref import attention_ref as jax_attn_ref
 from repro_torch.kernels.flash_attention import kernel, ops
+from test_torch_costmodel import one_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.port
 

@@ -19,6 +19,7 @@ from repro_torch.kernels.featurize import ops as featurize_ops
 from repro_torch.kernels.featurize.ref import hashed_embed_ref
 from repro_torch.kernels.linucb import ops as linucb_ops
 from repro_torch.kernels.linucb.ref import linucb_scores_ref
+from test_torch_costmodel import one_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.port
 

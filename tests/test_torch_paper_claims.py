@@ -11,6 +11,7 @@ from repro_torch.benchmarks.common import make_router, run_policy, stream
 from repro_torch.core.types import TaskType
 from repro_torch.data import OutcomeSimulator
 from repro_torch.data.profiles import ACCURACY, mean_energy_mwh
+from test_torch_costmodel import one_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.port
 

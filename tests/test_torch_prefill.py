@@ -31,6 +31,7 @@ from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.models import api
 from repro_torch.models.attention import flash_prefill
 from repro_torch.models.convert import params_from_jax
+from test_torch_costmodel import one_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.port
 

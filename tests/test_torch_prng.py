@@ -12,6 +12,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from repro_torch.core import prng
+from test_torch_costmodel import one_torch_thread  # noqa: F401
 
 pytestmark = [
     pytest.mark.port,

@@ -32,6 +32,7 @@ from repro_torch.core.embedding import EmbeddingModel
 from repro_torch.core.pool import ModelPool
 from repro_torch.core.router import GreenServRouter
 from repro_torch.core.types import Feedback, ModelProfile, Query, RouterConfig
+from test_torch_costmodel import one_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.port
 

@@ -33,6 +33,7 @@ from repro.kernels.linucb.ops import linucb_scores as jax_linucb_scores
 from repro.kernels.linucb.ref import linucb_scores_ref as jax_linucb_ref
 from repro_torch.kernels.featurize import kernel as fk
 from repro_torch.kernels.linucb import kernel as lk
+from test_torch_costmodel import one_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.port
 

@@ -45,6 +45,7 @@ from repro_torch.models.convert import params_from_jax
 from repro_torch.serving.engine import ModelEngine
 from repro_torch.serving.request import Request
 from repro_torch.serving.scheduler import PoolServer
+from test_torch_costmodel import one_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.port
 

@@ -31,6 +31,7 @@ from repro.kernels.rwkv6.ops import wkv as jax_wkv
 from repro.kernels.rwkv6.ref import wkv_ref as jax_wkv_ref
 from repro_torch.kernels.mamba2 import kernel as ssd_kernel
 from repro_torch.kernels.rwkv6 import kernel as wkv_kernel
+from test_torch_costmodel import one_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.port
 

@@ -40,6 +40,20 @@ from repro_torch.serving.scheduler import LivelockError, PoolServer
 
 pytestmark = pytest.mark.port
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread while this module runs: the suite runs in
+    several worker processes at once, and torch's default pool (a thread
+    per core in each) oversubscribes the cores — a launcher test took 245
+    s of wall time beside five copies of itself with the default threads
+    and 13 s with one."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ARCHS = ["granite-3-8b", "h2o-danube-3-4b"]
 MAX_LEN = 64          # ≤ the smoke danube window: a full-depth KV cache
 F32 = dict(smoke=True, vocab_size=tok.VOCAB_SIZE, dtype="float32",

@@ -267,7 +267,20 @@ Phases, in order; any failure raises and the script exits non-zero:
      at B=1 S=512 with ``use_pallas=True``: one WKV launch a layer and no
      other, the logits against ``use_pallas=False`` at the prefill
      phase's depth and tolerance (full depth printed), and the WKV
-     wrapper refusing a grad-requiring input under grad mode.
+     wrapper refusing a grad-requiring input under grad mode; (e) training
+     over the ranks of a process group: (e1) one rank, this process, on
+     its card over NCCL, through ``launch.train.train`` at (a)'s model,
+     batch, lr and steps — its losses and grad norms bit-equal to (a)'s,
+     its ms a step, the mean over the ranks' ms (CUDA events) and its
+     peak memory beside (a)'s; (e2) two spawned ranks on the one card
+     over gloo (NCCL takes one rank a device): smoke rwkv6 and qwen2-moe
+     in fp32 with error feedback, the ranks bit-equal, against this
+     process's step on the whole batch — at n_micro 2, whose microbatches
+     are the ranks' rows, within (b)'s tolerances; at n_micro 1 within
+     limits read on the card — and ``compressed_psum`` over 2 ranks × 4
+     replicas bit-equal to the one-device form.  The one-card checks
+     build their (1, 1) mesh themselves; the launcher's, in (c), is the
+     host mesh, which needs one visible card outside a process group.
   12. the cost walk (``repro_torch.launch.dryrun``), after the train
      phase's models are freed: (a) the records of two one-card cells of
      granite-3-8b at full width and depth (40 layers, bf16 weights),
@@ -583,6 +596,20 @@ TRAIN_LOSS_REL = 1e-5
 TRAIN_PARAM_REL = 1e-3
 TRAIN_LAUNCHER = dict(steps=8, batch=2, seq=32, ckpt_every=3,
                       fail_at_step=5, lr=5e-3)
+# (e2)'s smoke configs at TRAIN_PARITY, with error feedback: 2 ranks of
+# 2 rows against this process's step on the whole batch of 4, at n_micro 2
+# (its microbatches are the ranks' rows, so its products run at the
+# ranks' shapes; held at TRAIN_LOSS_REL / TRAIN_PARAM_REL) and at n_micro
+# 1 (held at the limits below).  At n_micro 1 the products at 4 rows pick
+# other kernels on the card than at 2, and qwen2-moe carries those low
+# bits far: Adam moves an element whose gradient cancels near zero by up
+# to lr either way, a rounding-level difference moves an element by a
+# whole int8 quantum of error feedback, and the routing follows.  Read on
+# an H100 80GB HBM3 at 700 W, the same in two runs: the third loss 2.48e-4
+# apart, a leaf 6.93e-3 (PERF.md §6); rwkv6 2.87e-7 and 1.74e-5
+TRAIN_RANKS = (RWKV_ARCH, MOE_ARCH)
+TRAIN_RANKS_WHOLE = {RWKV_ARCH: (TRAIN_LOSS_REL, TRAIN_PARAM_REL),
+                     MOE_ARCH: (1e-3, 2e-2)}
 HANDOFF_S = 512
 COST_ARCH = "granite-3-8b"     # the cost phase's model, full width and depth
 COST_CELLS = ((2, 4096, "prefill"), (4, 32768, "decode"))  # (B, S, kind)
@@ -5058,10 +5085,10 @@ def families_phase(dev) -> dict:
 def train_full_width(dev, lr: float = TRAIN_FULL[3]) -> tuple:
     """(a) ``make_train_step`` at rwkv6-1.6b's full width and depth on
     ``synthetic_batches``, at ``lr``: no kernel launched.  Returns (model,
-    cfg, losses, grad norms); ``train_phase`` checks them."""
+    cfg, losses, grad norms, {"ms": the median ms a step, "peak": peak
+    bytes above the start}); ``train_phase`` checks them."""
     from repro_torch import train as tr
     from repro_torch.configs import get_config
-    from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.launch.train import synthetic_batches
     from repro_torch.models import api, convert
 
@@ -5078,7 +5105,7 @@ def train_full_width(dev, lr: float = TRAIN_FULL[3]) -> tuple:
                         warmup_steps=min(20, steps // 5 + 1),
                         moment_dtype=cfg.moment_dtype)
     data = synthetic_batches(cfg, b, s + 1, device=dev)
-    bundle = tr.make_train_step(cfg, make_host_mesh(dev), next(data), ocfg,
+    bundle = tr.make_train_step(cfg, _card_mesh(dev), next(data), ocfg,
                                 loss_chunk=min(512, s))
     opt = tr.make_opt_state(cfg, model, ocfg)
     reset_launches()
@@ -5113,7 +5140,7 @@ def train_full_width(dev, lr: float = TRAIN_FULL[3]) -> tuple:
     if launched:
         raise AssertionError(f"(a) training launched kernels: {launched}")
     del opt
-    return model, cfg, losses, norms
+    return model, cfg, losses, norms, {"ms": med, "peak": peak}
 
 
 def _rel_l2(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -5128,7 +5155,7 @@ def train_parity(dev) -> None:
     ``compressed_psum`` bit-equal."""
     from repro_torch import train as tr
     from repro_torch.configs import get_config
-    from repro_torch.launch.mesh import make_host_mesh, make_mesh
+    from repro_torch.launch.mesh import make_mesh
     from repro_torch.launch.train import synthetic_batches
     from repro_torch.models import api, convert
 
@@ -5142,7 +5169,7 @@ def train_parity(dev) -> None:
             model = convert.params_from_jax(tree, cfg, d)
             ocfg = tr.OptConfig(lr=lr, total_steps=10, warmup_steps=1)
             data = synthetic_batches(cfg, b, s, device=d)
-            bundle = tr.make_train_step(cfg, make_host_mesh(d), next(data),
+            bundle = tr.make_train_step(cfg, _card_mesh(d), next(data),
                                         ocfg, loss_chunk=16)
             opt = tr.make_opt_state(cfg, model, ocfg)
             metrics = []
@@ -5226,6 +5253,220 @@ def train_launcher(dev) -> None:
         f"{time.perf_counter() - t:.2f} s")
     if not out["final_loss"] < out["first_loss"]:
         raise AssertionError(f"(c) the twin's loss did not fall: {out}")
+
+
+def _psum_replicas() -> dict:
+    """(e2)'s 8 replicas of a (32, 16) gradient."""
+    rng = np.random.default_rng(0)
+    return {"w": torch.from_numpy(rng.standard_normal((8, 32, 16))
+                                  .astype(np.float32))}
+
+
+def _card_mesh(dev):
+    """The ("data", "model") mesh of (1, 1) on ``dev``, whatever the host
+    holds: the one-card checks' mesh (outside a process group,
+    ``make_host_mesh`` refuses a host of more than one card)."""
+    from repro_torch.launch.mesh import make_mesh
+
+    return make_mesh((1, 1), ("data", "model"), dev.type)
+
+
+def _smoke_steps(arch: str, mesh, dev, n_micro: int = 1) -> tuple:
+    """``arch``'s smoke config in fp32 with error feedback through
+    ``make_train_step`` on ``mesh``, at TRAIN_PARITY's batch, steps and
+    lr, the weights of seed 1.  Returns (losses, grad norms, the
+    parameters on the CPU after the first step and after the last)."""
+    from repro_torch import train as tr
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import synthetic_batches
+    from repro_torch.models import api, convert
+
+    b, s, steps, lr = TRAIN_PARITY
+    cfg = get_config(arch, smoke=True, dtype="float32")
+    tree = convert.params_to_jax(api.init_params(cfg, 1, "cpu"), cfg)
+    model = convert.params_from_jax(tree, cfg, dev)
+    ocfg = tr.OptConfig(lr=lr, total_steps=10, warmup_steps=1)
+    data = synthetic_batches(cfg, b, s, device=dev)
+    bundle = tr.make_train_step(cfg, mesh, next(data), ocfg, loss_chunk=16,
+                                n_micro=n_micro, use_ef_compress=True)
+    opt = tr.make_opt_state(cfg, model, ocfg, True)
+    losses, norms, states = [], [], []
+    for i in range(steps):
+        model, opt, m = bundle.fn(model, opt, next(data))
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        if i in (0, steps - 1):
+            states.append({"/".join(path): leaf.detach().cpu()
+                           for path, leaf in convert.tree_items(
+                               convert.params_to_jax(model, cfg))})
+    return losses, norms, states
+
+
+def _same_steps(a: tuple, b: tuple) -> bool:
+    """Two ``_smoke_steps`` results, bit for bit."""
+    return a[0] == b[0] and a[1] == b[1] and all(
+        torch.equal(x[k], y[k]) for x, y in zip(a[2], b[2]) for k in x)
+
+
+def _steps_gaps(got: tuple, want: tuple) -> tuple:
+    """The largest relative gap of a loss and of a grad norm over the
+    steps, and of a parameter leaf (L2) after the first step and after
+    the last (with the leaf's name)."""
+    rel = lambda x, y: abs(x - y) / abs(y)  # noqa: E731
+    return (max(map(rel, got[0], want[0])), max(map(rel, got[1], want[1])),
+            [max((_rel_l2(g[k], leaf), k) for k, leaf in w.items())
+             for g, w in zip(got[2], want[2])])
+
+
+def _ranks_job(r) -> dict:
+    """(e2) one rank of the group: each smoke config's steps on the
+    (world, 1) mesh of ranks, then ``compressed_psum`` on this rank's
+    block of the 8 replicas."""
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.train import compressed_psum
+
+    mesh = make_host_mesh(r.device)
+    out = {arch: _smoke_steps(arch, mesh, r.device) for arch in TRAIN_RANKS}
+    n = 8 // r.world
+    block = {k: v[r.rank * n:(r.rank + 1) * n].to(r.device)
+             for k, v in _psum_replicas().items()}
+    out["psum"] = compressed_psum(block, "data", mesh)["w"].cpu()
+    return out
+
+
+def train_ranks(dev, want_losses: list, want_norms: list,
+                figures: dict) -> None:
+    """(e) training over the ranks of a process group.  (e1) one rank in
+    this process on its card, over NCCL: ``launch.train.train`` at (a)'s
+    model, batch, lr and steps, its losses and grad norms bit-equal to
+    (a)'s (a one-rank all-reduce and a division by 1 are exact); its ms a
+    step, the mean over the ranks' ms a step (CUDA events) and its peak
+    memory beside (a)'s.  (e2) two spawned ranks driving the one card over
+    gloo (NCCL takes one rank a device): smoke rwkv6 and qwen2-moe in fp32
+    with error feedback (TRAIN_RANKS), the ranks bit-equal, against this
+    process's step on the whole batch — at n_micro 2, the ranks' rows a
+    microbatch, every loss, grad norm and the parameters after the first
+    step and the last at TRAIN_LOSS_REL / TRAIN_PARAM_REL; at n_micro 1
+    at TRAIN_RANKS_WHOLE — and ``compressed_psum`` over 2 ranks × 4
+    replicas bit-equal to the one-device form."""
+    import tempfile
+
+    from repro_torch.distributed import ranks
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.train import train
+    from repro_torch.train import compressed_psum
+    from repro_torch.train import step as train_step
+
+    b, s, steps, lr = TRAIN_FULL
+    cuda = dev.type == "cuda"       # else a rehearsal on the CPU
+    # the mean over the ranks timed between CUDA events: no host sync
+    events = []
+    mean_over_ranks = train_step._mean_over_ranks
+
+    def timed(tensors, mesh):
+        if not cuda:
+            return mean_over_ranks(tensors, mesh)
+        pair = (torch.cuda.Event(enable_timing=True),
+                torch.cuda.Event(enable_timing=True))
+        pair[0].record()
+        out = mean_over_ranks(tensors, mesh)
+        pair[1].record()
+        events.append(pair)
+        return out
+
+    t = time.perf_counter()
+    train_step._mean_over_ranks = timed
+    try:
+        with tempfile.TemporaryDirectory() as d:
+            # one rank, this process, on its card (NCCL takes one rank a
+            # device, so one process is one rank on any host)
+            with ranks.joined(dev, rank=0, world=1,
+                              backend="nccl" if cuda else "gloo",
+                              init_method=f"file://{d}/rendezvous") as r:
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                out = train(RWKV_ARCH, smoke=False, steps=steps, batch=b,
+                            seq=s, ckpt_dir=None, lr=lr, log_every=steps,
+                            device=dev)
+                torch.cuda.synchronize()
+                peak = torch.cuda.max_memory_allocated() - base
+    finally:
+        train_step._mean_over_ranks = mean_over_ranks
+    med = float(np.median(out["step_ms"][1:]))
+    reduce_ms = [a.elapsed_time(z) for a, z in events] or [0.0] * steps
+    log("train", f"(e1) {RWKV_ARCH} full width through launch.train.train "
+        f"on the (1, 1) mesh of ranks, rank {r.rank} of {r.world} on "
+        f"{r.device} over {r.backend}, B={b} S={s}, {out['steps']} steps "
+        f"at lr {lr}: loss {out['losses'][0]:.4f} -> "
+        f"{out['losses'][-1]:.4f}; median {med:.3f} ms a step (steps "
+        f"2-{steps}, host clock, data drawn inside; (a) "
+        f"{figures['ms']:.3f}), of it the mean of the gradients and the "
+        f"loss over the ranks {float(np.median(reduce_ms[1:])):.3f} ms "
+        f"(CUDA events, steps 2-{steps}: "
+        f"{' '.join(f'{x:.3f}' for x in reduce_ms[1:])}); peak memory "
+        f"{peak / 2**30:.2f} GiB above {base / 2**30:.2f} ((a) "
+        f"{figures['peak'] / 2**30:.2f}); {time.perf_counter() - t:.2f} s")
+    if not (out["steps"] == steps and out["losses"] == want_losses
+            and out["grad_norms"] == want_norms):
+        raise AssertionError(f"(e1) the rank path's losses / grad norms "
+                             f"{out['losses']} / {out['grad_norms']} are "
+                             f"not (a)'s {want_losses} / {want_norms}")
+    log("train", f"(e1) all {steps} losses and grad norms bit-equal to "
+        f"(a)'s")
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t = time.perf_counter()
+    card = torch.device("cuda", 0) if cuda else dev
+    if cuda:
+        free, total = torch.cuda.mem_get_info()
+        log("train", f"(e2) before the ranks start: {free / 2**30:.2f} of "
+            f"{total / 2**30:.2f} GiB free on the card, this process "
+            f"holding {torch.cuda.memory_reserved() / 2**30:.2f}")
+    got = ranks.spawn(_ranks_job, 2, device=card, backend="gloo",
+                      timeout=300)
+    t_ranks = time.perf_counter() - t
+    mesh = _card_mesh(dev)
+    for arch in TRAIN_RANKS:
+        mine = got[0][arch]
+        split = _steps_gaps(mine, _smoke_steps(arch, mesh, dev, n_micro=2))
+        whole = _steps_gaps(mine, _smoke_steps(arch, mesh, dev))
+        same = _same_steps(mine, got[1][arch])
+        loss_rel, param_rel = TRAIN_RANKS_WHOLE[arch]
+        said = [f"losses {g[0]:.3g}, grad norms {g[1]:.3g}, a parameter "
+                f"leaf (L2) after the first step {g[2][0][0]:.3g} "
+                f"({g[2][0][1]}) and the last {g[2][1][0]:.3g} "
+                f"({g[2][1][1]})" for g in (split, whole)]
+        log("train", f"(e2) {arch} smoke fp32 with error feedback, 2 ranks "
+            f"on {card} over gloo (NCCL takes one rank a device), "
+            f"{TRAIN_PARITY[2]} steps: losses "
+            f"{[round(x, 6) for x in mine[0]]}; the ranks bit-equal: "
+            f"{same}; largest relative gaps to this process's step on the "
+            f"whole batch at n_micro 2 (the ranks' rows a microbatch): "
+            f"{said[0]}; at n_micro 1: {said[1]}")
+        if not (same and split[0] <= TRAIN_LOSS_REL
+                and split[1] <= TRAIN_LOSS_REL
+                and all(w <= TRAIN_PARAM_REL for w, _ in split[2])):
+            raise AssertionError(
+                f"(e2) {arch}: 2 ranks vs one process at n_micro 2 "
+                f"{split} > {TRAIN_LOSS_REL} / {TRAIN_PARAM_REL}, or the "
+                f"ranks differ ({same})")
+        if not (whole[0] <= loss_rel
+                and all(w <= param_rel for w, _ in whole[2])):
+            raise AssertionError(
+                f"(e2) {arch}: 2 ranks vs one process at n_micro 1 "
+                f"{whole} > {loss_rel} / {param_rel}")
+    one = compressed_psum({k: v.to(dev) for k, v in
+                           _psum_replicas().items()}, "data",
+                          make_mesh((8,), ("data",)))["w"].cpu()
+    if not all(torch.equal(g["psum"], one) for g in got):
+        raise AssertionError("(e2) compressed_psum over 2 ranks x 4 "
+                             "replicas != the one-device form")
+    log("train", f"(e2) compressed_psum over 2 ranks x 4 replicas bit-equal "
+        f"to the one-device form; the two ranks took {t_ranks:.2f} s "
+        f"(process start included), the part {time.perf_counter() - t:.2f} "
+        f"s")
 
 
 def train_handoff(dev, model, cfg) -> dict:
@@ -5317,7 +5558,7 @@ def train_phase(dev) -> dict:
     example twin, (d) the hand-off to serving.  Returns (d)'s launches
     (training itself launches none)."""
     t = time.perf_counter()
-    model, cfg, losses, norms = train_full_width(dev)
+    model, cfg, losses, norms, figures = train_full_width(dev)
     if not all(np.isfinite(losses + norms)):
         raise AssertionError(f"(a) a loss or grad norm is not finite: "
                              f"{losses} {norms}")
@@ -5331,7 +5572,9 @@ def train_phase(dev) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     log("train", f"(d) {time.perf_counter() - t:.2f} s")
-    for name, part in (("(b)", train_parity), ("(c)", train_launcher)):
+    for name, part in (("(b)", train_parity), ("(c)", train_launcher),
+                       ("(e)", lambda d: train_ranks(d, losses, norms,
+                                                     figures))):
         t = time.perf_counter()
         reset_launches()
         part(dev)
@@ -5379,7 +5622,7 @@ def cost_cell(dev, model, cfg, b: int, s: int, kind: str, out_dir) -> tuple:
     from repro_torch.configs import ShapeCell
     from repro_torch.core.energy import HBM_BW
     from repro_torch.launch import dryrun
-    from repro_torch.launch.mesh import make_host_mesh, make_mesh
+    from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import api
 
     cell = ShapeCell(f"card_{kind}_b{b}_s{s}", kind, s, b)
@@ -5389,7 +5632,7 @@ def cost_cell(dev, model, cfg, b: int, s: int, kind: str, out_dir) -> tuple:
     t_walk = time.perf_counter() - t
     (out_dir / f"{COST_ARCH}__{cell.name}__1x1.json").write_text(
         json.dumps(rec, indent=1))
-    mesh = make_host_mesh(dev)
+    mesh = _card_mesh(dev)
     gen = torch.Generator(device=dev)
     gen.manual_seed(12)
     if kind == "prefill":

@@ -8,14 +8,15 @@ are supported and the choice is recorded in the run log.
 
 The recovery path is: detect loss → ``plan_remesh`` → rebuild step bundle on
 the degraded mesh → ``checkpoint.restore(..., shardings=new)`` → continue.
-The arithmetic is the JAX package's, on ``launch.mesh.Mesh``.
+The arithmetic is the JAX package's, on ``launch.mesh.Mesh``; a plan over
+a mesh of ranks keeps its first ranks (``build_mesh``).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
-from repro_torch.launch.mesh import PLACEHOLDER, Mesh, make_mesh
+from repro_torch.launch.mesh import PLACEHOLDER, Mesh, make_mesh, rank_mesh
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,6 +62,13 @@ def plan_remesh(mesh: Mesh, lost_chips: int,
                       n_micro_multiplier=mult)
 
 
-def build_mesh(plan: RemeshPlan, platform: str = PLACEHOLDER) -> Mesh:
-    """The plan's mesh over the first ids of ``platform``."""
-    return make_mesh(plan.new_shape, plan.axes, platform)
+def build_mesh(plan: RemeshPlan, base: Optional[Mesh] = None) -> Mesh:
+    """The plan's mesh over the first ids of ``base``, the mesh it
+    re-meshes (placeholder ids without one).  Over a mesh of ranks: the
+    first ranks, which form their subgroup (every rank calls this), this
+    rank on its own device; the ranks past the plan's extent hold no
+    place on it."""
+    if base is not None and base.spans_ranks:
+        return rank_mesh(plan.new_shape, plan.axes, base.device)
+    return make_mesh(plan.new_shape, plan.axes,
+                     base.platform if base is not None else PLACEHOLDER)

@@ -5,26 +5,43 @@ stream, schedule, checkpoints and recovery, on the card unless the caller
 names another device.  Fault tolerance: periodic atomic checkpoints
 (``distributed/checkpoint.py``, the JAX package's format and names, so a
 run resumes from either package's checkpoint), a step-time watchdog,
-restart from ``LATEST`` (``--lost-chips`` re-meshes through
-``distributed/elastic.py``; on one card no chip can be lost).
+restart from ``LATEST`` on the same mesh; ``lost_chips`` re-meshes once,
+before the first step, through ``distributed/elastic.py``.
+
+The reference trains on the host mesh, ``(n, 1)`` over every local
+device.  Here that is one process a device, the ranks of a process group
+(``distributed/ranks.py``): every rank draws the same global batches and
+the step takes its rows (``train/step.py``); rank 0 writes the
+checkpoints, behind a barrier, and every rank restores ``LATEST``; a
+failure is met on every rank, which restores on the same mesh.  A
+degraded mesh keeps the first ranks; the others take no step.  Every
+rank returns rank 0's result.  ``main`` on a host of n > 1 cards starts
+n ranks itself; under ``torchrun`` it joins the group that is there.
 
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.train --arch rwkv6-1.6b \\
         --smoke --steps 50 --batch 8 --seq 128 --ckpt-dir <dir> \\
         [--device cpu]
+    PYTHONPATH=src torchrun --nproc-per-node N -m repro_torch.launch.train \\
+        --arch rwkv6-1.6b --smoke ...
 """
 from __future__ import annotations
 
 import argparse
+import datetime
+import os
+import sys
 import time
 from typing import Iterator, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.device import resolve_device
 from repro_torch.distributed import checkpoint as ckpt
+from repro_torch.distributed import ranks
 from repro_torch.distributed.elastic import build_mesh, plan_remesh
 from repro_torch.distributed.fault import StragglerDetector, TrainWatchdog
 from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
@@ -63,14 +80,31 @@ def synthetic_batches(cfg, batch: int, seq: int, seed: int = 0,
 
 
 def _mesh_device(mesh) -> torch.device:
-    """The device this process trains on: the mesh's first, if this host
-    has every device of the mesh (a production plan it never has)."""
-    have = (torch.cuda.device_count() if mesh.platform == "cuda"
+    """The device this process trains on: its rank's on a mesh of ranks,
+    else the mesh's first, if this host has every device of the mesh (a
+    production plan it never has)."""
+    have = (mesh.size if mesh.spans_ranks
+            else torch.cuda.device_count() if mesh.platform == "cuda"
             else 1 if mesh.platform == "cpu" else 0)
     if mesh.size > have:
         raise ValueError(f"the mesh {mesh.shape} needs {mesh.size} "
                          f"{mesh.platform} devices; this host has {have}")
     return mesh.device
+
+
+# how long a rank that a degraded mesh leaves out waits for rank 0's
+# result: the whole run, longer than a collective's default deadline
+IDLE_WAIT = datetime.timedelta(days=7)
+
+
+def _from_rank0(result, mesh, group=None):
+    """Rank 0's result on every rank of the world (a rank outside a
+    degraded mesh has none of its own)."""
+    if not mesh.spans_ranks:
+        return result
+    box = [result]
+    dist.broadcast_object_list(box, src=0, group=group)
+    return box[0]
 
 
 def train(arch: str, smoke: bool, steps: int, batch: int, seq: int,
@@ -82,9 +116,15 @@ def train(arch: str, smoke: bool, steps: int, batch: int, seq: int,
     cfg = get_config(arch, smoke=smoke)
     mesh = (make_production_mesh() if production_mesh
             else make_host_mesh(device))
+    handoff = None
     if lost_chips:
-        mesh = build_mesh(plan_remesh(mesh, lost_chips), mesh.platform)
+        mesh = build_mesh(plan_remesh(mesh, lost_chips), mesh)
+        if mesh.spans_ranks:
+            handoff = dist.new_group(backend="gloo", timeout=IDLE_WAIT)
+    if not mesh.holds_this_rank:
+        return _from_rank0(None, mesh, handoff)
     dev = _mesh_device(mesh)
+    lead = not mesh.spans_ranks or dist.get_rank() == 0
     opt_cfg = OptConfig(lr=lr, total_steps=max(steps, 2), warmup_steps=min(
         20, steps // 5 + 1), moment_dtype=cfg.moment_dtype)
 
@@ -102,17 +142,28 @@ def train(arch: str, smoke: bool, steps: int, batch: int, seq: int,
         convert.load_params_(model, tree)
         return opt, extra
 
+    def save(step, prune):
+        if lead:
+            ckpt.save(ckpt_dir, step, (convert.params_to_jax(model, cfg),
+                                       opt),
+                      extra={"step": step, "arch": arch})
+            if prune:
+                ckpt.prune(ckpt_dir, keep=3)
+        if mesh.spans_ranks:
+            dist.barrier(group=mesh.group)
+
     model = api.init_params(cfg, 0, dev)
     opt = make_opt_state(cfg, model, opt_cfg, use_ef_compress)
     start_step = 0
     if ckpt_dir and ckpt.latest_step(ckpt_dir) is not None:
         opt, extra = restore()
         start_step = int(extra.get("step", 0))
-        print(f"[train] restored step {start_step} from {ckpt_dir}")
+        if lead:
+            print(f"[train] restored step {start_step} from {ckpt_dir}")
 
     watchdog = TrainWatchdog(ckpt_dir)
     straggle = StragglerDetector()
-    losses = []
+    losses, norms, step_ms = [], [], []
     step = start_step
     while step < steps:
         t0 = time.monotonic()
@@ -125,29 +176,31 @@ def train(arch: str, smoke: bool, steps: int, batch: int, seq: int,
         except RuntimeError as e:
             if not ckpt_dir or not watchdog.should_restart():
                 raise
-            print(f"[train] step {step} failed ({e}); restoring")
+            if lead:
+                print(f"[train] step {step} failed ({e}); restoring")
             restore_step = watchdog.on_failure()
             opt, extra = restore()
             step = int(extra.get("step", restore_step))
             continue
         straggle.record("host0", time.monotonic() - t0)
         loss = float(metrics["loss"])
+        step_ms.append((time.monotonic() - t0) * 1e3)
         losses.append(loss)
+        norms.append(float(metrics["grad_norm"]))
         step += 1
-        if step % log_every == 0 or step == steps:
+        if lead and (step % log_every == 0 or step == steps):
             print(f"[train] step {step:5d} loss {loss:.4f} "
                   f"lr {float(metrics['lr']):.2e} "
-                  f"gnorm {float(metrics['grad_norm']):.2f}")
+                  f"gnorm {norms[-1]:.2f}")
         if ckpt_dir and step % ckpt_every == 0:
-            ckpt.save(ckpt_dir, step, (convert.params_to_jax(model, cfg), opt),
-                      extra={"step": step, "arch": arch})
-            ckpt.prune(ckpt_dir, keep=3)
+            save(step, prune=True)
     if ckpt_dir:
-        ckpt.save(ckpt_dir, step, (convert.params_to_jax(model, cfg), opt),
-                  extra={"step": step, "arch": arch})
-    return {"final_loss": losses[-1] if losses else float("nan"),
-            "first_loss": losses[0] if losses else float("nan"),
-            "steps": step, "losses": losses}
+        save(step, prune=False)
+    return _from_rank0(
+        {"final_loss": losses[-1] if losses else float("nan"),
+         "first_loss": losses[0] if losses else float("nan"),
+         "steps": step, "losses": losses, "grad_norms": norms,
+         "step_ms": step_ms}, mesh, handoff)
 
 
 def main(argv=None) -> dict:
@@ -168,13 +221,33 @@ def main(argv=None) -> dict:
     ap.add_argument("--device", default=None,
                     help="the device to train on (default: the card)")
     args = ap.parse_args(argv)
+    if ranks.current() is not None:
+        return _train_args(args)
+    if "RANK" in os.environ:            # started by torchrun
+        with ranks.joined(args.device):
+            return _train_args(args)
+    if (resolve_device(args.device) == torch.device("cuda")
+            and torch.cuda.device_count() > 1):
+        return ranks.spawn(_rank_main, torch.cuda.device_count(),
+                           sys.argv[1:] if argv is None else argv,
+                           device=args.device)[0]
+    return _train_args(args)
+
+
+def _train_args(args) -> dict:
     out = train(args.arch, args.smoke, args.steps, args.batch, args.seq,
                 args.ckpt_dir, args.ckpt_every, args.n_micro,
-                args.ef_compress, fail_at_step=args.fail_at_step, lr=args.lr,
-                device=args.device)
-    print(f"[train] done: loss {out['first_loss']:.3f} -> "
-          f"{out['final_loss']:.3f} over {out['steps']} steps")
+                args.ef_compress, fail_at_step=args.fail_at_step,
+                lr=args.lr, device=args.device)
+    if ranks.current() is None or dist.get_rank() == 0:
+        print(f"[train] done: loss {out['first_loss']:.3f} -> "
+              f"{out['final_loss']:.3f} over {out['steps']} steps")
     return out
+
+
+def _rank_main(r: ranks.Ranks, argv) -> dict:
+    """A rank of the group ``main`` starts over this host's cards."""
+    return main(argv)
 
 
 if __name__ == "__main__":

@@ -21,10 +21,11 @@ axis.
 A spec is a plain tuple with one entry a dim: an axis name, a tuple of
 axis names, or None (replicated), as ``jax.sharding.PartitionSpec``
 holds them.  The mesh is ``launch/mesh.py::Mesh``, usually a production
-plan.  There is no ``shard_fn``: one process runs no SPMD program, so
-nothing here places a tensor; the specs are read by the cost walk
-(``launch/dryrun.py``, ``launch/op_walker.py``), which charges the
-collectives and the per-device bytes they imply.
+plan.  There is no ``shard_fn``: nothing here places a tensor.  The
+specs are read by the cost walk (``launch/dryrun.py``,
+``launch/op_walker.py``), which charges the collectives and the
+per-device bytes they imply, and the train step reads its batch specs
+to give each rank of a mesh of ranks its rows (``train/step.py``).
 """
 from __future__ import annotations
 

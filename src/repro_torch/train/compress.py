@@ -8,10 +8,15 @@ Two integration points, as in the JAX package:
     gradient-accumulation boundary; the returned grads are the dequantized
     values so the optimizer math is unchanged.
   * ``compressed_psum(stacked, axis, mesh)`` — the int8 cross-replica sum:
-    shared max-scale → int8 encode → int32 accumulate → dequantize.  Here
-    the replicas are the leading dim of each leaf on one device; the same
-    sum as a ``torch.distributed`` collective across processes waits for a
-    port with more than one rank to run it on.
+    shared max-scale → int8 encode → int32 accumulate → dequantize.  The
+    replicas are the leading dim of each leaf: all of them on one device,
+    or, where ``axis`` runs across the ranks of a mesh of ranks
+    (``launch/mesh.py``), each rank's block of them, as a device holds its
+    shard in the reference — then the shared scale is an
+    ``all_reduce(MAX)`` and the int32 sum an ``all_reduce(SUM)`` (int8
+    values on the wire, carried in int32) over the mesh's group.  Every
+    step is exact, so both forms are bit-equal to each other and to the
+    reference's ``shard_map`` all-reduce.
 
 Rounding is half to even in both packages (``torch.round``,
 ``jnp.round``), so a quantized leaf is bit-equal to the reference's.
@@ -21,6 +26,7 @@ from __future__ import annotations
 from typing import Any, Dict, List, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.launch.mesh import Mesh
 from repro_torch.models.convert import tree_items, tree_map, tree_set
@@ -88,20 +94,27 @@ def compressed_psum(stacked: Dict[str, Any], axis: str,
                     mesh: Mesh) -> Dict[str, Any]:
     """Sum per-replica gradients over mesh axis ``axis`` in int8.
 
-    ``stacked`` leaves carry a leading replica dim of the axis' size:
-    replica i's partial gradient is slice i.  The result drops the leading
-    dim and is the dequantized sum: one scale shared by every replica (the
-    largest |value| of any), each replica's int8 encoding summed in
-    int32."""
+    ``stacked`` leaves carry a leading replica dim: replica i's partial
+    gradient is slice i — of the axis' size on one device; this rank's
+    block of the replicas where the axis runs across ranks.  The result
+    drops the leading dim and is the dequantized sum: one scale shared by
+    every replica (the largest |value| of any), each replica's int8
+    encoding summed in int32."""
+    across = mesh.spans_ranks and axis == "data"
     n = mesh.shape[axis]
 
     def leaf(g: torch.Tensor) -> torch.Tensor:
-        if g.shape[0] != n:
+        if not across and g.shape[0] != n:
             raise ValueError(f"a leaf of {g.shape[0]} replicas over axis "
                              f"{axis!r} of size {n}")
         g32 = g.float()
-        scale = _scale(torch.max(torch.abs(g32)))
+        amax = torch.max(torch.abs(g32))
+        if across:
+            dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=mesh.group)
+        scale = _scale(amax)
         total = _encode(g32, scale).to(torch.int32).sum(dim=0)
+        if across:
+            dist.all_reduce(total, group=mesh.group)
         return (total.float() * scale).to(g.dtype)
 
     return tree_map(leaf, stacked)

@@ -5,11 +5,12 @@ input and output on the mesh (``launch.mesh.Mesh``) and a description, as
 the JAX package's bundles carry NamedShardings for ``jax.jit``.  A
 placement here is a tree of ``torch.device``s of the inputs' and outputs'
 structure — what ``distributed.checkpoint.restore(..., shardings=)``
-takes.  One process drives the mesh's first device, so every leaf is
-replicated there (the meta device for a production plan).  ``specs``
-holds the inputs' partition specs on the mesh from the bundle's
-``ShardingPolicy`` (``models/sharding.py``), in ``in_shardings``'
-structure: what the cost walk (``launch/dryrun.py``) reads.
+takes: ``mesh.device``, this process's device (the meta device for a
+production plan), on which every leaf is whole.  ``specs`` holds the
+inputs' partition specs on the mesh from the bundle's ``ShardingPolicy``
+(``models/sharding.py``), in ``in_shardings``' structure: what the cost
+walk (``launch/dryrun.py``) reads, and what the train step reads to
+place the batch over a mesh of ranks.
 
 The train step takes (model, opt_state, batch) and returns (model,
 opt_state, metrics): the model's parameters and the stacked moments are
@@ -25,6 +26,7 @@ import dataclasses
 from typing import Any, Callable, Dict, List, Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.launch.mesh import Mesh
 from repro_torch.models import api, convert
@@ -55,6 +57,55 @@ def _microbatch(batch: Dict[str, Any], n_micro: int) -> List[Dict[str, Any]]:
         return x.reshape(n_micro, x.shape[0] // n_micro, *x.shape[1:])
     parts = {k: split(x) for k, x in batch.items()}
     return [{k: x[i] for k, x in parts.items()} for i in range(n_micro)]
+
+
+def _rows(batch: Dict[str, Any], specs: Dict[str, Any],
+          mesh: Mesh) -> Dict[str, Any]:
+    """This rank's rows of each leaf the specs split over "data"."""
+    n, i = mesh.shape["data"], mesh.index("data")
+
+    def take(x, spec):
+        if not spec or spec[0] != "data":
+            return x
+        if x.shape[0] % n:
+            raise ValueError(f"a batch of {x.shape[0]} rows over {n} ranks "
+                             f"that the step was built to split evenly")
+        rows = x.shape[0] // n
+        return x[i * rows:(i + 1) * rows]
+    return {k: take(x, specs[k]) for k, x in batch.items()}
+
+
+# a view of a reduced buffer starts where a fresh allocation would, so the
+# kernels that read it (vectorized loads, multi-tensor norms) take the
+# same paths, and sum in the same order, as on the tensors it replaces
+_ALIGN_BYTES = 512
+
+
+def _mean_over_ranks(tensors: List[torch.Tensor],
+                     mesh: Mesh) -> List[torch.Tensor]:
+    """Each tensor's mean over the mesh's ranks: one all-reduce (sum) for
+    each dtype over a flat buffer, then a true division by the rank
+    count.  Returns views of the reduced buffers."""
+    n = mesh.shape["data"]
+    out = list(tensors)
+    by_dtype: Dict[torch.dtype, List[int]] = {}
+    for j, t in enumerate(tensors):
+        by_dtype.setdefault(t.dtype, []).append(j)
+    for dtype, members in by_dtype.items():
+        align = _ALIGN_BYTES // tensors[members[0]].element_size()
+        starts, total = [], 0
+        for j in members:
+            starts.append(total)
+            total += -(-tensors[j].numel() // align) * align
+        flat = torch.zeros(total, dtype=dtype,
+                           device=tensors[members[0]].device)
+        for j, at in zip(members, starts):
+            flat[at:at + tensors[j].numel()].copy_(tensors[j].reshape(-1))
+        dist.all_reduce(flat, group=mesh.group)
+        flat = optim.divide(flat, n)
+        for j, at in zip(members, starts):
+            out[j] = flat[at:at + tensors[j].numel()].view(tensors[j].shape)
+    return out
 
 
 @contextlib.contextmanager
@@ -91,11 +142,30 @@ def make_train_step(cfg: ModelConfig, mesh: Mesh,
     Compression and AdamW run leaf by leaf of the JAX-named tree (one
     quantization grid a leaf, weight decay by the stacked leaf's rank),
     over the leaf's per-layer parameters and its moments' layer slices
-    at once."""
+    at once.
+
+    On a mesh of ranks the step is the reference's GSPMD step over
+    "data": it takes the global batch, and where the policy's batch spec
+    of a microbatch splits it over "data", each rank computes on its rows
+    of each microbatch of the global batch; the gradients and the loss
+    (``ce``, ``aux``) are then their means over the ranks (each rank's
+    loss is a mean over equally many rows, and MoE dispatch groups are
+    per row, so these are the global batch's), before compression,
+    clipping and AdamW, which run alike on every rank.  A batch that
+    "data" does not divide is replicated, as ``_fit`` has it: every rank
+    computes the whole of it and nothing is reduced.  Parameters and
+    moments are whole on every rank."""
     ocfg = opt_cfg or OptConfig(moment_dtype=cfg.moment_dtype)
     accum_dt = getattr(torch, cfg.grad_accum_dtype)
+    policy = ShardingPolicy(cfg, mesh, "train")
+    micro_specs = policy.batch_specs(
+        _microbatch(dict(example_batch), n_micro)[0])
+    split = mesh.spans_ranks and all(spec and spec[0] == "data"
+                                     for spec in micro_specs.values())
 
     def grads_of(model, params, batch):
+        if split:
+            batch = _rows(batch, micro_specs, mesh)
         loss, aux = api.loss_fn(model, batch, cfg, loss_chunk=loss_chunk)
         grads = torch.autograd.grad(loss, params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
@@ -119,6 +189,15 @@ def make_train_step(cfg: ModelConfig, mesh: Mesh,
                 loss = torch.stack(losses).mean()
                 aux_metrics = {}
         with torch.no_grad():
+            if split:
+                k = len(grads)
+                reduced = _mean_over_ranks(
+                    [*grads, loss, *aux_metrics.values()], mesh)
+                # the metrics outlive the step: copies, not views that
+                # would hold the gradients' buffer into the next step
+                grads, loss = reduced[:k], reduced[k].clone()
+                aux_metrics = {name: x.clone() for name, x in
+                               zip(aux_metrics, reduced[k + 1:])}
             groups = convert.leaf_groups(model)
             ef = opt_state.get("ef")
             if use_ef_compress:
@@ -155,7 +234,6 @@ def make_train_step(cfg: ModelConfig, mesh: Mesh,
     psh = _placed(mesh, shapes)
     osh = _placed(mesh, opt_state_shapes(cfg, ocfg, use_ef_compress))
     bsh = _placed(mesh, dict(example_batch))
-    policy = ShardingPolicy(cfg, mesh, "train")
     pspecs = policy.param_specs(shapes)
     ospecs = {"m": pspecs, "v": pspecs, "step": ()}
     if use_ef_compress:

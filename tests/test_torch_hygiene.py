@@ -46,13 +46,14 @@ def test_no_jax_or_reference_imports(path):
 def test_the_walk_covers_every_subpackage():
     """Every subpackage of the port has its modules in the import walk —
     the energy layer (``costmodel``, ``telemetry``), the launchers, the
-    fleet, its fault, checkpoint and re-mesh primitives and the training
-    substrate among them."""
+    fleet, its fault, checkpoint, re-mesh and process-group primitives
+    and the training substrate among them."""
     subpackages = {p.parent for p in PORT.rglob("__init__.py")}
     assert subpackages <= {p.parent for p in FILES}
     for name in ("costmodel", "telemetry", "launch", "fleet", "distributed",
                  "train"):
         assert PORT / name in subpackages
+    assert PORT / "distributed" / "ranks.py" in FILES
 
 
 def test_every_port_module_imports_without_jax():

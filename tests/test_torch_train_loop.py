@@ -41,6 +41,7 @@ from repro.models import api as jax_api
 from repro import train as jax_train
 from repro_torch.configs import get_config
 from repro_torch.distributed import checkpoint as ckpt
+from repro_torch.distributed import ranks
 from repro_torch.distributed.elastic import (RemeshPlan, build_mesh,
                                              plan_remesh)
 from repro_torch.launch import mesh as port_mesh
@@ -129,14 +130,33 @@ def jax_on_8_devices(tmp_path_factory):
 # ---------------------------------------------------------------------------
 
 
-def test_meshes(monkeypatch):
-    """The host mesh (the CPU's (1, 1); the card's, or a refusal where
-    there is none), the production plans and the degraded meshes."""
+def test_meshes(monkeypatch, tmp_path):
+    """The host mesh (the CPU's (1, 1); inside a process group the mesh
+    of its ranks, on this rank's device; the card's, refused on a host of
+    more than one card outside a group, or where there is none), the
+    production plans and the degraded meshes."""
     host = port_mesh.make_host_mesh("cpu")
     jhost = jax.sharding.Mesh(np.array(jax.devices()).reshape(1, 1),
                               ("data", "model"))
     assert host.shape == dict(jhost.shape) == {"data": 1, "model": 1}
     assert host.device == torch.device("cpu")
+    assert not host.spans_ranks and host.holds_this_rank
+    with ranks.joined("cpu", rank=0, world=1,
+                      init_method=f"file://{tmp_path / 'rendezvous'}") as r:
+        assert (r.rank, r.world, r.backend) == (0, 1, "gloo")
+        assert ranks.current() == (0, 1)
+        mesh = port_mesh.make_host_mesh("cpu")
+        assert mesh.spans_ranks and mesh.holds_this_rank
+        assert mesh.shape == {"data": 1, "model": 1}
+        assert mesh.device == torch.device("cpu") and mesh.index("data") == 0
+    assert ranks.current() is None
+    assert not port_mesh.make_host_mesh("cpu").spans_ranks
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    for flags in (torch.backends.cuda.matmul, torch.backends.cudnn):
+        monkeypatch.setattr(flags, "allow_tf32", flags.allow_tf32)
+    with pytest.raises(RuntimeError, match="2 ranks.*torchrun"):
+        port_mesh.make_host_mesh()
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         port_mesh.make_host_mesh()

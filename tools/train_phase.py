@@ -45,7 +45,7 @@ def main() -> int:
     card = chip_smoke.card_line()
     dev = torch.device("cuda")
     for lr in args.lr:
-        model, cfg, losses, norms = chip_smoke.train_full_width(dev, lr)
+        model, cfg, losses, norms, _ = chip_smoke.train_full_width(dev, lr)
         print(json.dumps({"lr": lr, "losses": losses, "grad_norms": norms,
                           "falls": losses[-1] < losses[0], "card": card}),
               flush=True)
@@ -62,7 +62,6 @@ def profile_step(dev, model, cfg, lr: float, card: str) -> None:
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch import train as tr
-    from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.launch.train import synthetic_batches
 
     import chip_smoke
@@ -71,7 +70,8 @@ def profile_step(dev, model, cfg, lr: float, card: str) -> None:
     ocfg = tr.OptConfig(lr=lr, total_steps=steps,
                         warmup_steps=min(20, steps // 5 + 1))
     data = synthetic_batches(cfg, b, s + 1, seed=1, device=dev)
-    bundle = tr.make_train_step(cfg, make_host_mesh(dev), next(data), ocfg)
+    bundle = tr.make_train_step(cfg, chip_smoke._card_mesh(dev), next(data),
+                                ocfg)
     opt = tr.make_opt_state(cfg, model, ocfg)
     for _ in range(2):
         model, opt, m = bundle.fn(model, opt, next(data))
